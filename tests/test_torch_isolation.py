@@ -1,0 +1,84 @@
+"""The port stands alone: importing every module of ``repro_torch`` loads
+neither ``jax`` nor ``repro``; no source under ``port/`` (nor
+``chip_smoke.py``) imports them; and the default store, which runs on the
+card, refuses to start without one instead of falling back to the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "port"))
+
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch.core import BourbonStore, StoreConfig  # noqa: E402
+from repro_torch.core.engine import EngineConfig, LookupEngine  # noqa: E402
+
+REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+PORT = os.path.join(REPO, "port")
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+
+
+def _port_modules():
+    mods = []
+    for dirpath, _, files in os.walk(os.path.join(PORT, "repro_torch")):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, f), PORT)[:-3]
+                mod = rel.replace(os.sep, ".")
+                mods.append(mod[: -len(".__init__")]
+                            if mod.endswith(".__init__") else mod)
+    return mods
+
+
+def test_importing_every_module_loads_no_jax_or_repro():
+    mods = _port_modules()
+    assert "repro_torch.core.engine" in mods and len(mods) >= 18
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        sys.path.insert(0, {PORT!r})
+        for m in {mods!r}:
+            importlib.import_module(m)
+        bad = sorted(k for k in sys.modules
+                     if k.split(".")[0] in {sorted(FORBIDDEN)!r})
+        print(",".join(bad))
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120, check=True)
+    assert out.stdout.strip() == ""
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0]
+
+
+def test_no_source_imports_jax_or_repro():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for dirpath, dirs, files in os.walk(PORT):
+        if dirpath == PORT and "build" in dirs:
+            dirs.remove("build")           # build output, not source
+        paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    assert len(paths) > 10
+    for p in paths:
+        bad = FORBIDDEN.intersection(_imports(p))
+        assert not bad, f"{p} imports {bad}"
+
+
+def test_default_store_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BourbonStore(StoreConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        LookupEngine(EngineConfig())
+    assert StoreConfig().engine.device == "cuda"
+    assert BourbonStore(StoreConfig(device="cpu")).engine.device.type == "cpu"
