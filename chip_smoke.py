@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the port's batched GET on one NVIDIA card and check every kernel.
 
-  python3 chip_smoke.py [--keys N] [--seed S]
+  python3 chip_smoke.py [--keys N] [--shard-keys N] [--seed S]
 
 1. Builds the CUDA kernels of ``port/repro_torch/kernels/csrc`` with nvcc
    (sm_90a) and prints ptxas's register and spill report.
@@ -14,10 +14,24 @@
         with a 65536-key batch and small batches the host answers.
    Kernel launch counts are zeroed just before phase A and read just after
    phase C; each kernel of the path must have launched.
-3. Holds each kernel against its plain PyTorch version on the same CUDA
-   tensors at the live state's shapes (4096 probes), times both with CUDA
-   events, and computes the kernel's lower bound from the bytes its probes
-   must gather.
+3. Drives the durable sharded GET the serving plane sits on: a
+   ``ShardedStore`` of 4 level-granularity shards in a temporary directory
+   (the shard config of benchmarks/bench_dist_recovery.py, ``--shard-keys``
+   ``make_dataset("ar")`` keys, the last 4096 only in the WALs):
+     D  32 GETs of 4096 keys (values fetched) through the filter-plane
+        stack probe and the shard descent; then the store is dropped
+        without close(), reopened from its directories alone, and the
+        GETs repeat;
+     E  one shard's own GET in engine mode "level" on its recovered level
+        models, and one direct engine lookup whose filter mask the card
+        probes (no host mask), held to the host-mask lookup.
+   Counts are zeroed just before phase D and read just after phase E;
+   ``bloom_probe_stack``, ``plr_lookup`` and ``bounded_search`` must have
+   launched.
+4. Holds each kernel against its plain PyTorch version on the same CUDA
+   tensors at the live state's shapes (4096 probes; the stack probe at
+   both of its live shapes), times both with CUDA events, and computes the
+   kernel's lower bound from the bytes its probes must gather.
 
 Output: one line per phase, a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit from nvidia-smi, and last the ``{"ok": true, ...}``
@@ -28,10 +42,13 @@ device, when the port's package is missing, or on the first wrong answer.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -135,7 +152,7 @@ def run_gets(store, truth: Truth, batches: list, tag: str) -> dict:
             "launches": {k: v - launched[k] for k, v in ops.launches.items()}}
 
 
-def host_profile(store, batches: list) -> dict:
+def host_profile(get, batches: list) -> dict:
     """Where a GET batch's host time goes: cProfile over a few batches,
     the functions with the most self time (cProfile adds its own cost per
     Python call, so read the shares, not the absolute times)."""
@@ -145,7 +162,7 @@ def host_profile(store, batches: list) -> dict:
     prof = cProfile.Profile()
     prof.enable()
     for probes in batches:
-        store.get_batch(probes)
+        get(probes)
     prof.disable()
     st = pstats.Stats(prof)
     rows = sorted(((tt, nc, f"{os.path.basename(fn)}:{ln}({name})")
@@ -155,7 +172,7 @@ def host_profile(store, batches: list) -> dict:
             "top_self": [{"fn": f, "calls": c, "s": t} for t, c, f in rows[:10]]}
 
 
-def profile_gets(store, batches: list) -> dict:
+def profile_gets(get, batches: list) -> dict:
     """Device time of a few GET batches under torch.profiler: total kernel
     time against the wall clock, and the kernels that took the most."""
     import torch
@@ -167,7 +184,7 @@ def profile_gets(store, batches: list) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for probes in batches:
-            store.get_batch(probes)
+            get(probes)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev = []
@@ -243,8 +260,8 @@ def drive(device: str, n_keys: int, seed: int, card: str,
         torch.cuda.reset_peak_memory_stats()
     res = run_gets(store, truth, ab, "B")
     if device != "cpu":
-        res["profile"] = profile_gets(store, ab[:8])
-    res["host_profile"] = host_profile(store, ab[:8])
+        res["profile"] = profile_gets(store.get_batch, ab[:8])
+    res["host_profile"] = host_profile(store.get_batch, ab[:8])
     phase_line("B", store, res, card, {"learned": learned, "learn_s": learn_s})
     # the kernel checks run on the widest level as phase B served it, with
     # every file learned (phase C's compactions leave files unlearned)
@@ -288,8 +305,8 @@ def drive(device: str, n_keys: int, seed: int, card: str,
         torch.cuda.reset_peak_memory_stats()
     res = run_gets(store, truth, cb, "C")
     if device != "cpu":
-        res["profile"] = profile_gets(store, cb[:8])
-    res["host_profile"] = host_profile(store, cb[:8])
+        res["profile"] = profile_gets(store.get_batch, cb[:8])
+    res["host_profile"] = host_profile(store.get_batch, cb[:8])
     # (run_gets leaves each group's first batch untimed: cb[0] re-warms)
     res["batch_65536"] = run_gets(store, truth, [cb[0], big], "C-65536")
     host0 = store.filter_host_answered
@@ -301,6 +318,200 @@ def drive(device: str, n_keys: int, seed: int, card: str,
     phase_line("C", store, res, card, {"write_s": write_s})
     launches = dict(ops.launches)               # read just after phase C
     return store, launches, snapshot
+
+
+# ----------------------------------------------------------------------------
+# the durable sharded GET (phases D and E)
+# ----------------------------------------------------------------------------
+
+N_SHARDS = 4
+SHARD_BATCH = 4096
+
+
+def _sharded_cfg(device: str):
+    """The shard config of benchmarks/bench_dist_recovery.py at full
+    width, filters on (the default)."""
+    from repro_torch.core import LSMConfig, MaintenanceConfig, StoreConfig
+    from repro_torch.core.engine import EngineConfig
+    return StoreConfig(mode="bourbon", granularity="level", policy="always",
+                       value_size=16,
+                       lsm=LSMConfig(memtable_cap=1 << 12, file_cap=1 << 13,
+                                     l1_cap_records=1 << 15),
+                       engine=EngineConfig(seg_cap=4096),
+                       maintenance=MaintenanceConfig(auto_gc=False,
+                                                     auto_checkpoint=False,
+                                                     track_dead=False),
+                       device=device)
+
+
+def run_sharded_gets(st, truth: Truth, batches: list, tag: str) -> dict:
+    """``run_gets`` for the sharded store: values fetched, every answer
+    checked; the first batch (which builds the device state) is timed
+    apart."""
+    from repro_torch.kernels import ops
+    launched = dict(ops.launches)
+    secs = []
+    for bi, probes in enumerate(batches):
+        t0 = time.perf_counter()
+        found, values = st.get_batch(probes, with_values=True)
+        secs.append(time.perf_counter() - t0)
+        truth.check(f"{tag} batch {bi}", probes, found, values)
+    per = sorted(secs[1:])
+    return {"gets": sum(p.shape[0] for p in batches),
+            "batches": len(batches), "first_batch_s": secs[0],
+            "gets_per_s": sum(p.shape[0] for p in batches[1:]) / sum(secs[1:]),
+            "batch_ms_median": 1e3 * per[len(per) // 2],
+            "batch_ms_max": 1e3 * per[-1],
+            "launches": {k: v - launched[k] for k, v in ops.launches.items()}}
+
+
+def _level_lookup_pair(sh, probes: np.ndarray):
+    """One direct engine lookup in mode "level" whose filter mask the card
+    probes (``fstate`` without a host mask), and the same lookup with the
+    host screen's mask, as the store builds it."""
+    from repro_torch.core.filters import filter_maybe_np
+    from repro_torch.core.lsm import N_LEVELS
+    eng = sh.engine
+    state = eng.build_state(sh.tree, sh.level_models)
+    fstate = eng.build_filter_state(sh.level_filters)
+    live = [li for li in range(N_LEVELS) if sh.tree.levels[li]]
+    fm = filter_maybe_np([sh.level_filters[li] for li in live], probes)
+    fm_host = np.ones((N_LEVELS, probes.shape[0]), bool)
+    for row, li in enumerate(live):
+        fm_host[li] = fm[row]
+    l0 = len(sh.tree.levels[0])
+    dev = eng.lookup(state, probes, "level", l0_live=l0, fstate=fstate)
+    host = eng.lookup(state, probes, "level", l0_live=l0, fstate=fstate,
+                      fmaybe_host=fm_host)
+    return dev, host, fstate
+
+
+def drive_sharded(device: str, n_keys: int, seed: int, card: str,
+                  n_batches: int = 32):
+    """Phases D and E.  Returns the reopened store, the kernel launch
+    counts of D and E, and the shard engine's FilterState (for the stack
+    probe's check at its second live shape)."""
+    import torch
+    from repro_torch.core import make_dataset
+    from repro_torch.distributed import ShardedConfig, ShardedStore
+    from repro_torch.kernels import ops
+
+    keys = make_dataset("ar", n_keys, seed=seed)
+    rng = np.random.default_rng(seed + 10)
+    perm = rng.permutation(keys)
+    bounds = tuple(int(b) for b in np.quantile(
+        keys, np.arange(1, N_SHARDS) / N_SHARDS))
+    truth = Truth(keys, 16)
+    d = tempfile.mkdtemp(prefix="bourbon_smoke_shards_")
+    try:
+        t0 = time.perf_counter()
+        st = ShardedStore.open(d, ShardedConfig(N_SHARDS, bounds),
+                               _sharded_cfg(device))
+        flushed, tail = perm[:-SHARD_BATCH], perm[-SHARD_BATCH:]
+        for off in range(0, flushed.shape[0], SHARD_BATCH):
+            st.put_batch(flushed[off: off + SHARD_BATCH])
+        st.flush_all()
+        st.learn_all()
+        st.put_batch(tail)                  # only in the WALs at the kill
+        load_s = time.perf_counter() - t0
+        if not all(sh.memtable for sh in st.shards):
+            fail("phase D: the tail did not stay in the memtables")
+        r = np.random.default_rng(seed + 11)
+        batches = [np.concatenate([r.choice(keys, SHARD_BATCH // 2),
+                                   truth.absent(r, SHARD_BATCH // 2)])
+                   for _ in range(n_batches)]
+        batches[1][:64] = tail[:64]         # WAL-only keys are present
+        if device != "cpu":
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()                # the sharded path starts here
+        res = run_sharded_gets(st, truth, batches, "D")
+        del st                              # KILL: no close()
+        gc.collect()
+        t0 = time.perf_counter()
+        st = ShardedStore.open(d, device=device)
+        reopen_s = time.perf_counter() - t0
+        stats = st.stats()
+        if stats["files_learned"] != 0 or stats["level_models_recovered"] < 1:
+            fail(f"phase D: reopen relearned ({stats['files_learned']} "
+                 f"files, {stats['level_models_recovered']} level models "
+                 "recovered)")
+        res2 = run_sharded_gets(st, truth, batches, "D-reopen")
+
+        def get(p):
+            return st.get_batch(p, with_values=True)
+
+        if device != "cpu":
+            res2["profile"] = profile_gets(get, batches[:8])
+        res2["host_profile"] = host_profile(get, batches[:8])
+        state = st.device_state()
+        dev_bytes = (torch.cuda.max_memory_allocated()
+                     if device != "cpu" else 0)
+        print(json.dumps({
+            "phase": "D", "shards": N_SHARDS, "keys": n_keys,
+            "records": stats["n_records"], "load_s": load_s,
+            "reopen_s": reopen_s, "first_batch_s": res["first_batch_s"],
+            "reopen_first_batch_s": res2["first_batch_s"],
+            "gets_per_s": res["gets_per_s"],
+            "reopen_gets_per_s": res2["gets_per_s"],
+            "batch_ms_median": res["batch_ms_median"],
+            "reopen_batch_ms_median": res2["batch_ms_median"],
+            "level_models_recovered": stats["level_models_recovered"],
+            "models_recovered": stats["models_recovered"],
+            "launches": res["launches"], "reopen_launches": res2["launches"],
+            "profile": res2.get("profile"),
+            "host_profile": res2["host_profile"],
+            "device_max_bytes": dev_bytes,
+            "state_shapes": {k: list(v.shape) for k, v in state.items()},
+            "card": card}))
+
+        # phase E: one shard's own GET in mode "level"
+        sh = st.shards[0]
+        if sh._engine_mode() != "level" or any(
+                sh.level_models[i] is None
+                for i in range(1, len(sh.tree.levels)) if sh.tree.levels[i]):
+            fail("phase E: shard 0 does not serve every level by its model")
+        own = keys[st.shard_of(keys) == 0]
+        lo, hi = int(own[0]), int(own[-1])
+        eb = []
+        for _ in range(8):
+            a = r.integers(lo, hi, 4 * SHARD_BATCH, dtype=np.int64)
+            a = a[~Truth._isin(keys, a)][: SHARD_BATCH // 2]
+            eb.append(np.concatenate([r.choice(own, SHARD_BATCH // 2), a]))
+        base0 = sh.lookups_baseline_path
+        launched = dict(ops.launches)
+        secs = []
+        for bi, p in enumerate(eb):
+            t0 = time.perf_counter()
+            found, vptr = sh.get_batch(p)
+            secs.append(time.perf_counter() - t0)
+            truth.check(f"E batch {bi}", p, found,
+                        sh.vlog.get_batch_np(np.where(found, vptr, -1)))
+        if sh.lookups_baseline_path != base0:
+            fail("phase E: level-mode GETs took the baseline arm")
+        e_launch = {k: v - launched[k] for k, v in ops.launches.items()}
+        dev, host, fstate = _level_lookup_pair(sh, eb[0])
+        if not (np.array_equal(dev.found, host.found)
+                and np.array_equal(dev.vptr, host.vptr)):
+            fail("phase E: the device filter mask changed the answers")
+        in_mt = sh.memtable.get_batch(eb[0])[0]   # the engine sees the tree
+        if not np.array_equal(dev.found & (dev.vptr >= 0),
+                              Truth._isin(keys, eb[0]) & ~in_mt):
+            fail("phase E: the direct level lookup is wrong")
+        per = sorted(secs[1:])
+        print(json.dumps({
+            "phase": "E", "mode": sh._engine_mode(),
+            "files_per_level": [len(lv) for lv in sh.tree.levels],
+            "level_segments": [None if m is None else int(m.n_segments)
+                               for m in sh.level_models],
+            "gets_per_s": sum(p.shape[0] for p in eb[1:]) / sum(secs[1:]),
+            "batch_ms_median": 1e3 * per[len(per) // 2],
+            "launches": e_launch, "filter_state": list(fstate.bits.shape),
+            "direct_lookup_equal": True, "card": card}))
+        launches = dict(ops.launches)       # read just after phase E
+        return st, launches, fstate, d
+    except BaseException:
+        shutil.rmtree(d, ignore_errors=True)
+        raise
 
 
 # ----------------------------------------------------------------------------
@@ -459,6 +670,90 @@ def kernel_checks(store, launches: dict, snapshot) -> list:
     return out
 
 
+def stack_checks(st, fstate, launches_abc: dict, launches_de: dict) -> dict:
+    """``bloom_probe_stack`` against its plain version at both of its live
+    shapes — the sharded state's (4, fw) shard rows (phase D) and the shard
+    engine's (7, W) FilterState (phase E) — over rotated probe sets of
+    4096 (half keys of the rows, half random, pad lanes at the end).  The
+    entry's times are those of the (4, fw) shape, the server's path; the
+    (7, W) shape's sit under ``engine_shape``.  ``launches_abc`` and
+    ``launches_de`` are the counts read after phases A–C and D–E."""
+    import torch
+    from repro_torch.core.store import _PAD_PROBE
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+
+    state = st.device_state()
+    k = st.shards[0].cfg.lsm.bloom_k
+    keys = state["keys"][state["keys"] != np.iinfo(np.int64).max]
+    lo, hi = int(keys.min()), int(keys.max())
+    dev = keys.device
+    sets = []
+    for i in range(TIMED_BATCHES):
+        r = np.random.default_rng(2000 + i)
+        p = np.concatenate([r.choice(keys.cpu().numpy(), CHECK_B // 2),
+                            r.integers(lo, hi, CHECK_B // 2, dtype=np.int64)])
+        p[-8:] = _PAD_PROBE
+        sets.append(torch.from_numpy(p).to(dev))
+
+    def work(bits, nw, i):
+        """Bytes and operations probe set ``i`` needs: each probe read once
+        (8 B), nw (4 B a row), and per (row, probe) of a row with a filter
+        the words up to the first clear bit (8 B each; the kernel reads all
+        k, a data-dependent early exit needs no more), one output byte per
+        (row, probe); ~10 64-bit operations of hashing a probe and ~6 per
+        word."""
+        hits = ref.bloom_probe_stack_hits(bits, nw, sets[i], k).long()
+        # hash t's word is needed only while every earlier hash's bit is set
+        reached = torch.cat([torch.ones_like(hits[:1]), hits.cumprod(0)[:-1]])
+        n_words = int((reached * (nw > 0).long()[None, :, None]).sum())
+        L = bits.shape[0]
+        return (8 * CHECK_B + 4 * L + 8 * n_words + L * CHECK_B,
+                10 * CHECK_B + 6 * n_words)
+
+    out = {}
+    for tag, bits, nw in (("shards", state["fbits"], state["fnw"]),
+                          ("engine", fstate.bits, fstate.nw)):
+        kern = (lambda i, b=bits, n=nw: ops.bloom_probe_stack(b, n, sets[i],
+                                                              k))
+        plain = (lambda i, b=bits, n=nw: ref.bloom_probe_stack_ref(
+            b, n, sets[i], k))
+        mism = 0
+        for i in range(TIMED_BATCHES):
+            mism += int((kern(i) != plain(i)).sum())
+        torch.cuda.synchronize()
+        w = [work(bits, nw, i) for i in range(TIMED_BATCHES)]
+        b = sum(x for x, _ in w) / TIMED_BATCHES
+        o = sum(y for _, y in w) / TIMED_BATCHES
+        bound_b = b / HBM_BYTES_PER_S * 1e3
+        bound_o = o / NONTENSOR_OPS_PER_S * 1e3
+        out[tag] = {"ms": _time(kern), "plain_ms": _time(plain),
+                    "device_ms": _device_ms(kern, "bloom_probe_stack_kernel"),
+                    "mismatches": mism, "max_abs_err": float(mism > 0),
+                    "bound_ms": max(bound_b, bound_o),
+                    "bound_by": "bytes" if bound_b >= bound_o else "operations",
+                    "bytes_per_launch": b, "ops_per_launch": o,
+                    "shape": {"L": bits.shape[0], "W": bits.shape[1],
+                              "B": CHECK_B,
+                              "rows_with_filter": int((nw > 0).sum())}}
+    main = out["shards"]
+    return {"name": "bloom_probe_stack", "route": "cuda",
+            "source": "port/repro_torch/kernels/csrc/bloom_probe_stack.cu",
+            "replaces": "src/repro/kernels/bloom_probe.py:121",
+            "launches": (launches_abc["bloom_probe_stack"]
+                         + launches_de["bloom_probe_stack"]),
+            "launches_abc": launches_abc["bloom_probe_stack"],
+            "launches_de": launches_de["bloom_probe_stack"],
+            "max_abs_err": max(v["max_abs_err"] for v in out.values()),
+            "mismatches": sum(v["mismatches"] for v in out.values()),
+            "ms": main["ms"], "device_ms": main["device_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "bytes_per_launch": main["bytes_per_launch"],
+            "ops_per_launch": main["ops_per_launch"], "shape": main["shape"],
+            "engine_shape": out["engine"]}
+
+
 def _device_ms(fn, symbol: str) -> float | None:
     """Mean device time per launch of the kernel named ``symbol``, from
     torch.profiler over one pass of the probe sets: the kernel's own run
@@ -506,6 +801,10 @@ def main() -> int:
     ap.add_argument("--keys", type=int, default=1 << 23,
                     help="OSM-like keys loaded into the store (the host "
                          "LSM load of 1 << 24 does not fit the run's time)")
+    ap.add_argument("--shard-keys", type=int, default=1 << 22,
+                    help="ar keys loaded into the sharded store of phases "
+                         "D and E (the bench_dist_recovery config at "
+                         "4M keys instead of its 128K)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -538,6 +837,23 @@ def main() -> int:
     for k in checks:
         if k["launches"] <= 0:
             fail(f"{k['name']} never launched on the main path")
+    del store, snapshot
+    gc.collect()
+    st, launches_de, fstate, shard_dir = drive_sharded(
+        "cuda", args.shard_keys, args.seed, card)
+    try:
+        for name in ("bloom_probe_stack", "plr_lookup", "bounded_search"):
+            if launches_de[name] <= 0:
+                fail(f"{name} never launched on the sharded path (D, E)")
+        for k in checks:
+            k["launches_abc"] = k["launches"]
+            k["launches_de"] = launches_de[k["name"]]
+            k["launches"] += launches_de[k["name"]]
+        checks.append(stack_checks(st, fstate, launches, launches_de))
+        st.close()
+    finally:
+        shutil.rmtree(shard_dir, ignore_errors=True)
+    for k in checks:
         if k["mismatches"] != 0:
             fail(f"{k['name']} disagrees with its plain version on "
                  f"{k['mismatches']} outputs")

@@ -13,7 +13,13 @@ it).  The ``state`` dict holds::
     memtable:      dict of keys, seqs, vptrs (arrival order)
     level_filters: [None or dict of bits, n_words, k_hashes, bits_per_key,
                     n_keys, epoch] per level
+    level_models:  [None or dict of starts, slopes, intercepts, n_segments,
+                    epoch] per level (level granularity; optional)
     level_version: [int] per level;  seq: int;  clock: float
+
+Level models and filters are carried as current for the carried level
+versions, with their epochs, so the converted store neither relearns nor
+rebuilds them.
 """
 
 from __future__ import annotations
@@ -29,14 +35,18 @@ from repro_torch.core.store import BourbonStore, StoreConfig
 __all__ = ["store_from_numpy"]
 
 
+def _model(m: dict | None, delta: int) -> PLRModel | None:
+    if m is None:
+        return None
+    return PLRModel(np.asarray(m["starts"], np.float64),
+                    np.asarray(m["slopes"], np.float64),
+                    np.asarray(m["intercepts"], np.float64),
+                    int(m["n_segments"]), delta=delta,
+                    epoch=int(m.get("epoch", -1)))
+
+
 def _table(d: dict, delta: int) -> SSTable:
-    m = d.get("model")
-    model = None
-    if m is not None:
-        model = PLRModel(np.asarray(m["starts"], np.float64),
-                         np.asarray(m["slopes"], np.float64),
-                         np.asarray(m["intercepts"], np.float64),
-                         int(m["n_segments"]), delta=delta)
+    model = _model(d.get("model"), delta)
     return SSTable(keys=np.ascontiguousarray(d["keys"], np.int64),
                    seqs=np.ascontiguousarray(d["seqs"], np.int64),
                    vptrs=np.ascontiguousarray(d["vptrs"], np.int64),
@@ -79,6 +89,11 @@ def store_from_numpy(state: dict, cfg: StoreConfig) -> BourbonStore:
         epochs.append(int(f["epoch"]))
     # carried filters are current for their level versions: no rebuild
     st._filter_versions = list(st.tree.level_version)
+    for li, m in enumerate(state.get("level_models") or [None] * N_LEVELS):
+        st.level_models[li] = _model(m, delta)
+        if m is not None:
+            epochs.append(int(m["epoch"]))
+    st._level_model_versions = list(st.tree.level_version)
     if epochs:
         st.executor.next_model_epoch = max(epochs) + 1
     st._seq = int(state["seq"])

@@ -9,12 +9,20 @@ lookup batch of B probe keys then runs the paper's steps (Fig. 1 / Fig. 6):
                   -> SearchFB -> LoadChunk+LocateKey (delta-window probe)
                   -> ReadValue
 
+  level path:     FindFiles -> level-model ModelLookup (one PLR over the
+                  whole level: a global index) -> global index to (file,
+                  local index) by bisect over the files' first indexes ->
+                  window compare -> SearchFB on the selected file
+
 ModelLookup, SearchFB, LoadChunk+LocateKey and SearchIB+SearchDB are the
 hand-written CUDA kernels of ``repro_torch.kernels.ops`` (their plain
-PyTorch versions on the CPU); FindFiles, the masking and the per-file
-positive/negative counts for the cost-benefit analyzer are plain tensor
-code.  The semantics are those of ``repro.core.engine`` exactly: found,
-vptr, served level, per-file counters, probe split and filter stats.
+PyTorch versions on the CPU), and so is the filter plane's stack probe
+(``filter_probe``) that prunes levels ahead of the descent when the caller
+has no host mask.  FindFiles, the level path's file bisect and window
+compare, the masking and the per-file positive/negative counts for the
+cost-benefit analyzer are plain tensor code.  The semantics are those of
+``repro.core.engine`` exactly: found, vptr, served level, per-file
+counters, probe split and filter stats.
 
 PyTorch runs eagerly, so the reference's jit cache, ``state_signature`` and
 ``trace_count`` have no counterpart here: a dispatch launches its kernels
@@ -35,10 +43,11 @@ from .lsm import LSMTree, N_LEVELS
 from .sstable import BLOCK_RECORDS
 
 __all__ = ["EngineConfig", "DeviceLevel", "DeviceState", "FilterState",
-           "LookupEngine", "LookupResult", "PendingLookup", "resolve_device"]
+           "LevelModel", "LookupEngine", "LookupResult", "PendingLookup",
+           "resolve_device"]
 
 KEY_SENTINEL = np.iinfo(np.int64).max
-MODES = ("baseline", "model", "model_pure")
+MODES = ("baseline", "model", "model_pure", "level")
 
 
 def _next_pow2(x: int) -> int:
@@ -80,8 +89,22 @@ class DeviceLevel:
 
 
 @dataclasses.dataclass
+class LevelModel:
+    """Level-granularity PLR (§4.3): key -> global index in the level.
+    One row, so ModelLookup runs through the rows-form kernel."""
+    starts: torch.Tensor     # (1, S) f64, S = level_seg_cap (+inf pad)
+    slopes: torch.Tensor     # (1, S) f64
+    icepts: torch.Tensor     # (1, S) f64
+    nseg: torch.Tensor       # (1,) int32 (0 = no model)
+    total: torch.Tensor      # (1,) int32 records in the level
+    file_start: torch.Tensor  # (F,) int64 global index of each file's first key
+    n_seg: int               # host copy of nseg: reading it never syncs
+
+
+@dataclasses.dataclass
 class DeviceState:
     levels: tuple            # N_LEVELS DeviceLevel
+    level_models: tuple      # N_LEVELS LevelModel (n_seg = 0: no model)
 
 
 @dataclasses.dataclass
@@ -155,7 +178,11 @@ class EngineConfig:
     bloom_k: int = 7
     block_records: int = BLOCK_RECORDS
     seg_cap: int = 4096          # max PLR segments per file
+    level_seg_cap: int = 65536   # max PLR segments per level model
     fetch_values: bool = False
+    # the reference's filter-plane impl switch, accepted and persisted so
+    # configs carry across packages; the port always runs its kernel
+    filter_impl: str = "ref"
     device: str = "cuda"         # "cpu" runs the kernels' plain versions
 
 
@@ -168,8 +195,10 @@ class LookupEngine:
         self._state_cache: dict[int, DeviceLevel] = {}
         self._state_versions: list[int] = [-1] * N_LEVELS
         self._learned: list[tuple] = [()] * N_LEVELS  # learned flag per file
-        # stamp for filters that arrive without an epoch: unique,
-        # decreasing, never reused — store-built filters carry epochs >= 0
+        self._lm_versions: list = [-1] * N_LEVELS
+        self._lm_cache: dict[int, LevelModel] = {}
+        # stamp for level models and filters that arrive without an epoch:
+        # unique, decreasing, never reused — store-fit ones carry epochs >= 0
         self._unstamped_epoch = -2
         # per-level (model_probes, baseline_probes) and (pruned,
         # false-positive) counts, accumulated on the device as (N_LEVELS, 2)
@@ -237,9 +266,37 @@ class LookupEngine:
         return {"starts": d(starts), "slopes": d(slopes), "icepts": d(icepts),
                 "nseg": d(nseg)}
 
+    def _build_level_model(self, tree: LSMTree, level: int,
+                           model) -> LevelModel:
+        """A level model's segment table padded to ``level_seg_cap``, plus
+        the global index of each file's first key.  A level without a model
+        gets a one-entry table: its probes never reach ModelLookup."""
+        tables = tree.levels[level]
+        F = max(2, _next_pow2(len(tables) + 1))
+        file_start = np.zeros(F, np.int64)
+        acc = 0
+        for i, t in enumerate(tables):
+            file_start[i] = acc
+            acc += t.n
+        S = self.cfg.level_seg_cap if model is not None else 1
+        starts = np.full((1, S), np.inf, np.float64)
+        slopes = np.zeros((1, S), np.float64)
+        icepts = np.zeros((1, S), np.float64)
+        ns = 0
+        if model is not None:
+            ns = int(model.n_segments)
+            starts[0, :ns] = np.asarray(model.starts)[:ns]
+            slopes[0, :ns] = np.asarray(model.slopes)[:ns]
+            icepts[0, :ns] = np.asarray(model.intercepts)[:ns]
+        d = self._to_dev
+        return LevelModel(d(starts), d(slopes), d(icepts),
+                          d(np.array([ns], np.int32)),
+                          d(np.array([acc], np.int32)), d(file_start), ns)
+
     def build_state(self, tree: LSMTree, level_models=None) -> DeviceState:
         """Stack the host tree to the device, reusing unchanged levels
-        (dirty tracking by ``tree.level_version``).
+        (dirty tracking by ``tree.level_version``) and level models (keyed
+        on (level version, model epoch)).
 
         Learning a file does not bump its level's version, so the learned
         set is tracked too: when files were learned since a level was
@@ -247,13 +304,23 @@ class LookupEngine:
         keys on the level version alone and keeps serving ``nseg = 0`` for
         such files, which in mode ``model_pure`` misses every key they
         hold.)"""
-        if level_models is not None and any(m is not None
-                                            for m in level_models):
-            raise NotImplementedError("level-granularity models are ported "
-                                      "in slice 2")
         levels = []
+        lms = []
+        level_models = level_models or [None] * N_LEVELS
         for i in range(N_LEVELS):
             ver = tree.level_version[i]
+            # (level version, model epoch): id() is unsafe as a key (the
+            # allocator reuses addresses); the epoch is monotonic per store
+            # and persisted, so it also survives reopen
+            lm = level_models[i]
+            if lm is not None and getattr(lm, "epoch", -1) == -1:
+                lm.epoch = self._unstamped_epoch
+                self._unstamped_epoch -= 1
+            mver = (ver, None if lm is None else lm.epoch)
+            if self._lm_versions[i] != mver or i not in self._lm_cache:
+                self._lm_cache[i] = self._build_level_model(tree, i, lm)
+                self._lm_versions[i] = mver
+            lms.append(self._lm_cache[i])
             tables = tree.levels[i]
             learned = tuple(t.model is not None for t in tables)
             if self._state_versions[i] != ver or i not in self._state_cache:
@@ -266,7 +333,7 @@ class LookupEngine:
                     lv, **self._stack_models(tables, lv.keys.shape[0]))
                 self._learned[i] = learned
             levels.append(self._state_cache[i])
-        return DeviceState(tuple(levels))
+        return DeviceState(tuple(levels), tuple(lms))
 
     def build_filter_state(self, level_filters) -> FilterState:
         """Stack per-level host filters (core.filters.LevelFilter | None) to
@@ -298,6 +365,14 @@ class LookupEngine:
         self._filter_cache = (sig, fs)
         return fs
 
+    def filter_probe(self, fstate: FilterState,
+                     probes: torch.Tensor) -> torch.Tensor:
+        """The filter plane: one batched probe of every level's filter for
+        the whole batch -> (L, B) maybe-mask ahead of the descent (SearchFB
+        hoisted in front of FindFiles), through the stack-probe kernel."""
+        return ops.bloom_probe_stack(fstate.bits, fstate.nw, probes,
+                                     self.cfg.bloom_k)
+
     # ---------------------------------------------------------------- probes
     def _probe_file(self, lv: DeviceLevel, f: torch.Tensor, probes, mode: str):
         """One file row per probe (f (B,) int32) -> (hit, vptr); the model
@@ -328,6 +403,38 @@ class LookupEngine:
         idx = idx.long().clamp(max=C - 1)
         return hit, torch.where(hit, lv.vptrs[fl, idx], -1)
 
+    def _probe_level_via_model(self, lv: DeviceLevel, lm: LevelModel,
+                               probes):
+        """Level-model path: the level PLR gives a global index, each window
+        slot maps to (file, local index) by bisect over ``file_start``, and
+        the first matching slot selects the file for SearchFB.  Returns
+        (hit, vptr, file row per probe)."""
+        d = self.cfg.plr_delta
+        B = probes.shape[0]
+        dev = probes.device
+        zero_rows = torch.zeros(B, dtype=torch.int32, device=dev)
+        gpos = ops.plr_lookup(lm.starts, lm.slopes, lm.icepts, lm.nseg,
+                              lm.total, zero_rows, probes).long()
+        top = (lm.total.long() - 1).clamp(min=0)
+        offs = torch.arange(-(d + 1), d + 2, dtype=torch.int64, device=dev)
+        gidx = torch.minimum((gpos[:, None] + offs).clamp(min=0), top)
+        flat = gidx.reshape(-1)
+        fidx = torch.searchsorted(lm.file_start[:lv.n_files], flat,
+                                  right=True) - 1
+        fidx = fidx.clamp(0, lm.file_start.shape[0] - 1)
+        local = (flat - lm.file_start[fidx]).clamp(0, lv.keys.shape[-1] - 1)
+        win = lv.keys[fidx, local].reshape(B, -1)
+        eq = win == probes[:, None]
+        hit_in = eq.any(dim=-1)
+        rel = torch.argmax(eq.to(torch.uint8), dim=-1)   # argmax rejects bool
+        sel = torch.arange(B, device=dev) * win.shape[1] + rel
+        f_sel = fidx[sel]
+        l_sel = local[sel]
+        maybe = ops.bloom_probe(lv.bloom, lv.bloom_nw, f_sel.to(torch.int32),
+                                probes, self.cfg.bloom_k)
+        hit = maybe & hit_in
+        return hit, torch.where(hit, lv.vptrs[f_sel, l_sel], -1), f_sel
+
     def _find_file(self, lv: DeviceLevel, probes):
         """FindFiles for a sorted level: candidate = first file with
         max_key >= probe; valid if min_key <= probe."""
@@ -343,6 +450,9 @@ class LookupEngine:
         dev = self.device
         B = probes.shape[0]
         use_filters = fmaybe is not None
+        # L0 files carry file models in every mode but baseline: level mode
+        # runs the per-file arms there (L0 ranges overlap)
+        file_mode = "model" if mode == "level" else mode
         i64 = torch.int64
         found = torch.zeros(B, dtype=torch.bool, device=dev)
         vptr = torch.full((B,), -1, dtype=i64, device=dev)
@@ -368,7 +478,7 @@ class LookupEngine:
                         # tables: a screened key skips every slot's probe
                         prn = prn + (active & ~fmaybe[0]).sum(dtype=i64)
                         active = active & fmaybe[0]
-                    hit, v = self._probe_file(lv, f, probes, mode)
+                    hit, v = self._probe_file(lv, f, probes, file_mode)
                     hit = hit & active
                     miss = active & ~hit
                     if use_filters:
@@ -385,15 +495,22 @@ class LookupEngine:
                 if use_filters:
                     prn = prn + (active & ~fmaybe[li]).sum(dtype=i64)
                     active = active & fmaybe[li]
-                hit, v = self._probe_file(lv, f_cand.to(torch.int32), probes,
-                                          mode)
+                lm = state.level_models[li]
+                if mode == "level" and lm.n_seg > 0:
+                    hit, v, fattr = self._probe_level_via_model(lv, lm,
+                                                                probes)
+                else:
+                    hit, v = self._probe_file(
+                        lv, f_cand.to(torch.int32), probes,
+                        "baseline" if mode == "level" else mode)
+                    fattr = f_cand
                 hit = hit & active
                 miss = active & ~hit
                 if use_filters:
                     fpc = fpc + torch.where(fhas[li], miss.sum(dtype=i64),
                                             zero)
-                pos_c.index_add_(0, f_cand, hit.to(torch.int32))
-                neg_c.index_add_(0, f_cand, miss.to(torch.int32))
+                pos_c.index_add_(0, fattr, hit.to(torch.int32))
+                neg_c.index_add_(0, fattr, miss.to(torch.int32))
                 vptr = torch.where(hit, v, vptr)
                 served.masked_fill_(hit, li)
                 found = found | hit
@@ -416,6 +533,9 @@ class LookupEngine:
                 mp = torch.zeros_like(tot)
             elif mode == "model_pure":
                 mp = tot
+            elif mode == "level" and li > 0:
+                mp = tot if state.level_models[li].n_seg > 0 else \
+                    torch.zeros_like(tot)
             else:
                 mp = torch.where(state.levels[li].nseg > 0, tot_f, 0).sum()
             rows.append(torch.stack([mp, tot - mp]))
@@ -429,23 +549,20 @@ class LookupEngine:
         """Dispatch half of the lookup: launches the device work and returns
         without waiting for it.  With ``fstate`` the caller's host-screen
         mask ``fmaybe_host`` (N_LEVELS, B) prunes the levels each key
-        visits; ``level_maybe`` drops levels no dispatched key can reach."""
-        if mode == "level":
-            raise NotImplementedError("mode 'level' (level-granularity "
-                                      "models) is ported in slice 2")
+        visits; without it the filter plane probes the stacked filters on
+        the device (``filter_probe``).  ``level_maybe`` drops levels no
+        dispatched key can reach."""
         if mode not in MODES:
             raise ValueError(f"unknown engine mode {mode!r}")
-        if fstate is not None and fmaybe_host is None:
-            raise NotImplementedError("the device filter-plane probe "
-                                      "(bloom_probe_stack) is ported in "
-                                      "slice 2: pass fmaybe_host")
         p_dev = self._upload(np.ascontiguousarray(probes, np.int64))
         live = [lv.n_files > 0 for lv in state.levels]
         if l0_live == 0:
             live[0] = False
         fmaybe = fhas = None
         if fstate is not None:
-            fmaybe = self._upload(np.ascontiguousarray(fmaybe_host, bool))
+            fmaybe = (self._upload(np.ascontiguousarray(fmaybe_host, bool))
+                      if fmaybe_host is not None
+                      else self.filter_probe(fstate, p_dev))
             fhas = fstate.has
             if level_maybe is not None:
                 # a level whose maybe row is all-False for every dispatched

@@ -35,6 +35,7 @@ SIGNATURES = {
     "bounded_search_rows": [_P] * 7 + [_I, _I, _I, _P],
     "bloom_probe_rows": [_P] * 5 + [_I, _I, _I, _P],
     "sstable_search_rows": [_P] * 8 + [_I, _I, _I, _I, _P],
+    "bloom_probe_stack": [_P] * 4 + [_I, _I, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,4 +1,5 @@
-"""Wrappers of the four descent kernels, rows form.
+"""Wrappers of the five hand-written kernels: the four of the descent
+(rows form) and the filter plane's stack probe.
 
 A wrapper checks device, dtype, shape and contiguity, then either runs the
 plain PyTorch version (``kernels.ref``) because its tensors lie on the CPU,
@@ -14,6 +15,11 @@ Layouts (F files of a level, B probes, ``rows`` (B,) int32 = file row):
 * ``bounded_search``: keys (F, C) i64, n (F,) i32, pos (B,) i32
 * ``bloom_probe``:  bits (F, W) i64 (the uint64 words), nw (F,) i32
 * ``sstable_search``: fences (F, NB) i64, keys (F, C) i64, n_blocks/n (F,) i32
+
+and, without rows (every probe against every row):
+
+* ``bloom_probe_stack``: bits (L, W) i64 (the uint64 words), nw (L,) i32
+  -> (L, B) bool
 """
 
 from __future__ import annotations
@@ -24,10 +30,10 @@ from . import build
 from . import ref as _ref
 
 __all__ = ["plr_lookup", "bounded_search", "bloom_probe", "sstable_search",
-           "launches", "reset_launches"]
+           "bloom_probe_stack", "launches", "reset_launches"]
 
 launches = {"plr_lookup": 0, "bounded_search": 0, "bloom_probe": 0,
-            "sstable_search": 0}
+            "sstable_search": 0, "bloom_probe_stack": 0}
 
 
 def reset_launches() -> None:
@@ -151,3 +157,27 @@ def sstable_search(fences, keys, n_blocks, n, rows, probes,
                 rows.data_ptr(), probes.data_ptr(), idx.data_ptr(),
                 found.data_ptr(), B, fences.shape[1], C, int(block_records))
     return idx, found
+
+
+def bloom_probe_stack(bits, nw, probes, k_hashes: int) -> torch.Tensor:
+    """The filter plane: every probe against every filter row of the
+    stacked (L, W) filters -> maybe (L, B) bool; a row with nw == 0 is
+    all True.  Any B is taken: the kernel masks the ragged tail."""
+    L, W = bits.shape
+    dev = probes.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    _check("probes", probes, torch.int64, 1, dev)
+    _check("bits", bits, torch.int64, 2, dev)
+    _check("nw", nw, torch.int32, 1, dev)
+    if nw.shape[0] != L:
+        raise ValueError(f"nw: expected ({L},), got {tuple(nw.shape)}")
+    if dev.type == "cpu":
+        return _ref.bloom_probe_stack_ref(bits, nw, probes, k_hashes)
+    B = probes.shape[0]
+    maybe = torch.empty((L, B), dtype=torch.bool, device=dev)
+    if L and B:
+        _launch("bloom_probe_stack", "bloom_probe_stack", bits.data_ptr(),
+                nw.data_ptr(), probes.data_ptr(), maybe.data_ptr(), L, B, W,
+                int(k_hashes))
+    return maybe

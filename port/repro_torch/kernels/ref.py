@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four descent kernels, rows form.
+"""Plain PyTorch versions of the five hand-written kernels.
 
 Each takes the engine's row-indexed layout: a level's files are stacked into
 (F, ...) tensors and ``rows`` (B,) int32 names the file row each probe reads.
@@ -7,6 +7,9 @@ model) are the case F = 1.  The CPU path and the tests run these; on the card
 ``chip_smoke.py`` holds each CUDA kernel against its plain version on the
 same tensors.  Arithmetic mirrors the kernels exactly, including the PLR
 multiply-then-add (no fused multiply-add) and round-half-to-even.
+
+``bloom_probe_stack_ref`` is the filter plane's plain version: not rows
+form, but every probe against every row of a stacked (L, W) filter.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ import torch
 from repro_torch.core.bloom import hash2_torch, umod_torch
 
 __all__ = ["plr_lookup_rows_ref", "bounded_search_rows_ref",
-           "bloom_probe_rows_ref", "sstable_search_rows_ref"]
+           "bloom_probe_rows_ref", "sstable_search_rows_ref",
+           "bloom_probe_stack_hits", "bloom_probe_stack_ref"]
 
 
 def _bisect_rows(mat: torch.Tensor, rows: torch.Tensor, probes: torch.Tensor,
@@ -108,3 +112,29 @@ def sstable_search_rows_ref(fences, keys, n_blocks, n, rows, probes,
                        steps=max(1, math.ceil(math.log2(block_records + 1))))
     kv = keys[r, idx.clamp(0, C - 1)]
     return idx.to(torch.int32), (idx < nr) & (kv == probes)
+
+
+def bloom_probe_stack_hits(bits, nw, probes, k_hashes: int):
+    """(k, L, B) bool: whether hash i's bit is set in row l's filter for
+    probe b.  The hash modulus is each row's build-time word count
+    ``max(nw, 1)*64`` and the word index is clipped to W-1."""
+    L, W = bits.shape
+    m = nw.long().clamp(min=1)[:, None] * 64                    # (L, 1)
+    if L and int(m.max()) >= 1 << 31:
+        raise ValueError("filter too large for the 32-bit split modulus")
+    h1, h2 = hash2_torch(probes)
+    hits = torch.empty((k_hashes, L, probes.shape[0]), dtype=torch.bool,
+                       device=probes.device)
+    for i in range(k_hashes):
+        pos = umod_torch((h1 + i * h2)[None, :], m)             # (L, B)
+        word = torch.gather(bits, 1, (pos >> 6).clamp(max=W - 1))
+        hits[i] = ((word >> (pos & 63)) & 1) == 1
+    return hits
+
+
+def bloom_probe_stack_ref(bits, nw, probes, k_hashes: int):
+    """Filter plane: (L, W) stacked filters (int64 words, the uint64 bits
+    reinterpreted) x (B,) probes -> (L, B) bool: every hash's bit set, and
+    a row with ``nw == 0`` has no filter: all True."""
+    hits = bloom_probe_stack_hits(bits, nw, probes, k_hashes)
+    return hits.all(0) | (nw == 0)[:, None]

@@ -1,9 +1,10 @@
 """Null stage handle of ``repro.obs.tracer``.
 
-The store's value-fetch and filter-probe call sites hold a pre-bound stage
-handle and call ``t0 = h.begin(); ...; h.end(t0)`` without branching on
-"is obs enabled".  Slice 1 ports only the null object; the sampling tracer,
-registry and exporters come with ``obs/`` in a later slice.
+The stores' value-fetch and filter-probe call sites (and the I/O pool's
+value fetches) hold a pre-bound stage handle and call
+``t0 = h.begin(); ...; h.end(t0)`` without branching on "is obs enabled".
+Only the null object is ported; the sampling tracer, registry and
+exporters come with ``obs/`` in a later slice.
 """
 
 from __future__ import annotations

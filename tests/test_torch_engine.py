@@ -146,14 +146,14 @@ def test_learning_after_stacking_restacks_segment_tables():
 
 
 def test_unported_paths_raise():
+    """Mode "level" and the device filter probe are ported; the
+    reference's "mixed" mode (which the store never selects) is not."""
     (_, pt), keys = _trees("none")
     pe = peng.LookupEngine(peng.EngineConfig(device="cpu"))
     state = pe.build_state(pt)
     probes = _probes(keys)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        pe.lookup_async(state, probes, "level")
     fs = pe.build_filter_state([None] * N_LEVELS)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        pe.lookup_async(state, probes, "model", fstate=fs)
+    for mode in ("level", "model"):
+        pe.lookup_async(state, probes, mode, fstate=fs).resolve()
     with pytest.raises(ValueError):
         pe.lookup_async(state, probes, "mixed")

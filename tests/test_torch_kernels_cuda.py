@@ -5,7 +5,10 @@ runs on a machine with a card and PyTorch alone:
   python -m pytest -q -m gpu tests/test_torch_kernels_cuda.py
 
 The level is the rows-form case of test_torch_kernels.py: three files and
-an empty slot, mixed rows, ragged B = 4096 + 64 with pad lanes."""
+an empty slot, mixed rows, ragged B = 4096 + 64 with pad lanes.  The stack
+probe takes the same filters as an (L, W) stack with a filterless row and
+a ragged batch.  The last tests drive whole stores — file- and
+level-granularity, and the sharded store — on the card and on the CPU."""
 
 import os
 import sys
@@ -114,6 +117,74 @@ def test_sstable_search_cuda_matches_plain():
                            p, R),
         ref.sstable_search_rows_ref(t["fences"], t["keys"], t["n_blocks"],
                                     t["n"], r, p, R)))
+
+
+@pytest.mark.gpu
+def test_bloom_probe_stack_cuda_matches_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    t, _, p = _level("cuda")
+    nw = t["nw"].clone()
+    nw[3] = 0                            # the empty slot: no filter
+    for B in (4096 + 64, 4096 + 37, 1):
+        before = ops.launches["bloom_probe_stack"]
+        got = ops.bloom_probe_stack(t["bits"], nw, p[:B], K)
+        want = ref.bloom_probe_stack_ref(t["bits"], nw, p[:B], K)
+        torch.cuda.synchronize()
+        assert ops.launches["bloom_probe_stack"] == before + 1
+        assert got.shape == (4, B) and got.dtype == torch.bool
+        assert torch.equal(got.cpu(), want.cpu())
+        assert bool(got[3].all())
+
+
+@pytest.mark.gpu
+def test_cuda_level_and_sharded_stores_match_cpu(tmp_path):
+    """Level granularity (mode "level", the device filter probe) and the
+    durable sharded GET give the same answers on the card as on the CPU,
+    through the stack probe and the descent kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from repro_torch.core import LSMConfig, StoreConfig
+    from repro_torch.distributed import ShardedConfig, ShardedStore
+
+    keys = make_dataset("ar", 1 << 14, seed=3)
+    rng = np.random.default_rng(4)
+    perm = rng.permutation(keys)
+    bounds = tuple(int(b) for b in np.quantile(keys, [0.25, 0.5, 0.75]))
+    probes = np.concatenate([rng.choice(keys, 3000),
+                             rng.choice(keys, 1000) + 1])
+    outs = []
+    ops.reset_launches()
+    for device in ("cpu", "cuda"):
+        st = ShardedStore.open(
+            str(tmp_path / device), ShardedConfig(4, boundaries=bounds),
+            StoreConfig(granularity="level", policy="always", value_size=16,
+                        lsm=LSMConfig(memtable_cap=1 << 10, file_cap=1 << 11,
+                                      l1_cap_records=1 << 13)),
+            device=device)
+        for off in range(0, keys.shape[0], 4096):
+            st.put_batch(perm[off: off + 4096])
+        st.flush_all()
+        st.learn_all()
+        sh = st.shards[0]
+        own = probes[st.shard_of(probes) == 0]
+        own_res = sh.get_batch(own)           # builds the level filters
+        lookup = sh.engine.lookup(
+            sh.engine.build_state(sh.tree, sh.level_models),
+            np.resize(own, 1024), "level", l0_live=len(sh.tree.levels[0]),
+            fstate=sh.engine.build_filter_state(sh.level_filters))
+        outs.append((st.get_batch(probes, with_values=True), own_res,
+                     lookup.found, lookup.vptr))
+        st.close()
+    (a, a1, a2, a3), (b, b1, b2, b3) = outs
+    for x, y in ((a, b), (a1, b1)):
+        np.testing.assert_array_equal(x[0], y[0])
+        np.testing.assert_array_equal(x[1], y[1])
+    np.testing.assert_array_equal(a2, b2)
+    np.testing.assert_array_equal(a3, b3)
+    assert a[0][:3000].all()
+    for name in ("bloom_probe_stack", "plr_lookup", "bounded_search"):
+        assert ops.launches[name] > 0, name
 
 
 @pytest.mark.gpu

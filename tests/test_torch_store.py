@@ -209,12 +209,15 @@ def test_learning_between_reads_serves_the_models():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        P.BourbonStore(P.StoreConfig(storage_dir="x", device="cpu"))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        P.BourbonStore(P.StoreConfig(granularity="level", device="cpu"))
+    """Durable storage, level granularity and the I/O pool are ported;
+    the obs plane is the one store option left for a later slice."""
     st = P.BourbonStore(P.StoreConfig(device="cpu"))
     with pytest.raises(NotImplementedError, match="later slice"):
-        st.attach_io(object())
-    with pytest.raises(NotImplementedError, match="later slice"):
         st.attach_obs(object())
+    with pytest.raises(ValueError, match="granularity"):
+        P.BourbonStore(P.StoreConfig(granularity="block", device="cpu"))
+    st.attach_io(object())
+    st.detach_io()
+    assert P.BourbonStore(P.StoreConfig(granularity="level",
+                                        device="cpu"))._engine_mode() == \
+        "level"
