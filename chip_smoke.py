@@ -2,6 +2,7 @@
 """Drive the port's batched GET on one NVIDIA card and check every kernel.
 
   python3 chip_smoke.py [--keys N] [--shard-keys N] [--seed S]
+                        [--first-version DIR]
 
 1. Builds the CUDA kernels of ``port/repro_torch/kernels/csrc`` with nvcc
    (sm_90a) and prints ptxas's register and spill report.
@@ -30,8 +31,17 @@
    launched.
 4. Holds each kernel against its plain PyTorch version on the same CUDA
    tensors at the live state's shapes (4096 probes; the stack probe at
-   both of its live shapes), times both with CUDA events, and computes the
-   kernel's lower bound from the bytes its probes must gather.
+   both of its live shapes; ``bounded_search`` also at δ = 40 and
+   ``bloom_probe`` at k = 12), times both with CUDA events and
+   torch.profiler, and computes the kernel's lower bound from the bytes its
+   probes must gather and the per-launch floor (the device time of one
+   trivial PyTorch kernel over 4096 elements).
+5. With ``--first-version DIR`` (a directory holding earlier
+   ``bounded_search.cu`` and ``bloom_probe.cu``): builds them into a
+   library of their own and times them against the current kernels in
+   turns (first, current, current, first) on the same tensors, and times
+   ``bounded_search`` built with groups of 8, 16 and 32 lanes a probe
+   (8, 16, 32, 32, 16, 8).  Every version is held to the plain version.
 
 Output: one line per phase, a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit from nvidia-smi, and last the ``{"ok": true, ...}``
@@ -58,6 +68,9 @@ NONTENSOR_OPS_PER_S = 67e12    # H100 SXM non-tensor FP32 rate (data sheet)
 CHECK_B = 4096                 # probes per kernel launch in the checks
 TIMED_BATCHES = 32             # distinct probe sets rotated while timing
 TIMED_ROUNDS = 4
+WIDE_DELTA = 40                # window wider than one warp's group
+WIDE_K = 12                    # more hashes than one group of 8 lanes
+GROUPS = (8, 16, 32)           # bounded_search lanes per probe, timed
 
 
 def fail(msg: str) -> None:
@@ -524,7 +537,47 @@ def _steps(n):
     return torch.ceil(torch.log2(n.to(torch.float64) + 1)).to(torch.int64)
 
 
-def kernel_checks(store, launches: dict, snapshot) -> list:
+def _compare(kern, plain) -> tuple[int, float]:
+    """Outputs that differ, and the largest difference, of ``kern`` against
+    ``plain`` over every probe set."""
+    import torch
+    mism = 0
+    err = 0.0
+    for i in range(TIMED_BATCHES):
+        got, want = kern(i), plain(i)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            d = (g.long() - w.long()).abs()
+            mism += int((d != 0).sum())
+            err = max(err, float(d.max()))
+    torch.cuda.synchronize()
+    return mism, err
+
+
+def _bounded_fns(lv, sets, delta: int):
+    """``bounded_search`` at ``delta`` on probe set i: (its wrapper, its
+    plain version)."""
+    from repro_torch.kernels import ops, ref
+    return (lambda i: ops.bounded_search(lv.keys, lv.n, sets[i][0],
+                                         sets[i][2], sets[i][1], delta),
+            lambda i: ref.bounded_search_rows_ref(lv.keys, lv.n, sets[i][0],
+                                                  sets[i][2], sets[i][1],
+                                                  delta))
+
+
+def _bloom_fns(lv, sets, k: int):
+    """``bloom_probe`` with ``k`` hashes on probe set i: (its wrapper, its
+    plain version)."""
+    from repro_torch.kernels import ops, ref
+    return (lambda i: ops.bloom_probe(lv.bloom, lv.bloom_nw, sets[i][0],
+                                      sets[i][1], k),
+            lambda i: ref.bloom_probe_rows_ref(lv.bloom, lv.bloom_nw,
+                                               sets[i][0], sets[i][1], k))
+
+
+def kernel_checks(store, launches: dict, snapshot,
+                  first_dir: str | None = None) -> list:
     import torch
     from repro_torch.core.bloom import hash2_torch, umod_torch
     from repro_torch.core.store import _PAD_PROBE
@@ -605,22 +658,15 @@ def kernel_checks(store, launches: dict, snapshot) -> list:
          lambda i: ref.plr_lookup_rows_ref(lv.starts, lv.slopes, lv.icepts,
                                            lv.nseg, lv.n, sets[i][0],
                                            sets[i][1]),
-         w_plr),
+         w_plr, "1 thread/probe"),
         ("bounded_search", "port/repro_torch/kernels/csrc/bounded_search.cu",
          "src/repro/kernels/bounded_search.py:61",
-         lambda i: ops.bounded_search(lv.keys, lv.n, sets[i][0], sets[i][2],
-                                      sets[i][1], cfg.plr_delta),
-         lambda i: ref.bounded_search_rows_ref(lv.keys, lv.n, sets[i][0],
-                                               sets[i][2], sets[i][1],
-                                               cfg.plr_delta),
-         w_bounded),
+         *_bounded_fns(lv, sets, cfg.plr_delta),
+         w_bounded, "group=32 lanes/probe"),
         ("bloom_probe", "port/repro_torch/kernels/csrc/bloom_probe.cu",
          "src/repro/kernels/bloom_probe.py:69",
-         lambda i: ops.bloom_probe(lv.bloom, lv.bloom_nw, sets[i][0],
-                                   sets[i][1], cfg.bloom_k),
-         lambda i: ref.bloom_probe_rows_ref(lv.bloom, lv.bloom_nw, sets[i][0],
-                                            sets[i][1], cfg.bloom_k),
-         w_bloom),
+         *_bloom_fns(lv, sets, cfg.bloom_k),
+         w_bloom, "group=8 lanes/probe, one lane a hash"),
         ("sstable_search", "port/repro_torch/kernels/csrc/sstable_search.cu",
          "src/repro/kernels/sstable_search.py:95",
          lambda i: ops.sstable_search(lv.fences, lv.keys, lv.n_blocks, lv.n,
@@ -629,21 +675,12 @@ def kernel_checks(store, launches: dict, snapshot) -> list:
          lambda i: ref.sstable_search_rows_ref(lv.fences, lv.keys,
                                                lv.n_blocks, lv.n, sets[i][0],
                                                sets[i][1], cfg.block_records),
-         w_sstable),
+         w_sstable, "1 thread/probe"),
     ]
+    floor_ms = _floor_ms()
     out = []
-    for name, src, replaces, kern, plain, work in kernels:
-        mism = 0
-        err = 0.0
-        for i in range(TIMED_BATCHES):
-            got, want = kern(i), plain(i)
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            for g, w in zip(got, want):
-                d = (g.long() - w.long()).abs()
-                mism += int((d != 0).sum())
-                err = max(err, float(d.max()))
-        torch.cuda.synchronize()
+    for name, src, replaces, kern, plain, work, design in kernels:
+        mism, err = _compare(kern, plain)
         ms = _time(kern)
         plain_ms = _time(plain)
         device_ms = _device_ms(kern, f"{name}_rows_kernel")
@@ -660,14 +697,127 @@ def kernel_checks(store, launches: dict, snapshot) -> list:
                     "plain_ms": plain_ms, "bound_ms": max(bound_b, bound_o),
                     "bound_by": "bytes" if bound_b >= bound_o else "operations",
                     "library_ms": None, "bytes_per_launch": bytes_per,
-                    "ops_per_launch": ops_per,
+                    "ops_per_launch": ops_per, "design": design,
+                    "floor_ms": floor_ms,
                     "level": li, "shape": {"F": lv.keys.shape[0],
                                            "C": lv.keys.shape[1],
                                            "S": lv.starts.shape[1],
                                            "W": lv.bloom.shape[1],
                                            "NB": lv.fences.shape[1],
                                            "B": CHECK_B}})
+    by_name = {k["name"]: k for k in out}
+    # the redesigned kernels past one group: δ = 40 (83 keys, three chunks
+    # of 32) and k = 12 (two chunks of 8), on the same tensors
+    wide = {"bounded_search": ({"delta": WIDE_DELTA},
+                               *_bounded_fns(lv, sets, WIDE_DELTA)),
+            "bloom_probe": ({"k": WIDE_K}, *_bloom_fns(lv, sets, WIDE_K))}
+    for name, (arg, kern, plain) in wide.items():
+        mism, err = _compare(kern, plain)
+        by_name[name]["wide_check"] = {**arg, "mismatches": mism,
+                                       "max_abs_err": err,
+                                       "device_ms": _device_ms(
+                                           kern, f"{name}_rows_kernel")}
+        by_name[name]["first_version_device_ms"] = None
+    if first_dir is not None:
+        compare_versions(lv, sets, cfg, first_dir, by_name)
     return out
+
+
+def _raw(fn, *args) -> None:
+    """Launch a C entry point of a variant library on the current stream
+    (no launch count: these are comparisons, not the main path)."""
+    import torch
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        fail(f"variant launch failed: cudaError {err}")
+
+
+def _raw_bounded(lib, lv, s, delta: int):
+    import torch
+    rows, p, pos = s
+    B = p.shape[0]
+    idx = torch.empty(B, dtype=torch.int32, device=p.device)
+    found = torch.empty(B, dtype=torch.bool, device=p.device)
+    _raw(lib.bounded_search_rows, lv.keys.data_ptr(), lv.n.data_ptr(),
+         rows.data_ptr(), pos.data_ptr(), p.data_ptr(), idx.data_ptr(),
+         found.data_ptr(), B, lv.keys.shape[1], delta)
+    return idx, found
+
+
+def _raw_bloom(lib, lv, s, k: int):
+    import torch
+    rows, p, _ = s
+    B = p.shape[0]
+    maybe = torch.empty(B, dtype=torch.bool, device=p.device)
+    _raw(lib.bloom_probe_rows, lv.bloom.data_ptr(), lv.bloom_nw.data_ptr(),
+         rows.data_ptr(), p.data_ptr(), maybe.data_ptr(), B,
+         lv.bloom.shape[1], k)
+    return maybe
+
+
+def _mean(xs):
+    return None if any(x is None for x in xs) else sum(xs) / len(xs)
+
+
+def compare_versions(lv, sets, cfg, first_dir: str, by_name: dict) -> None:
+    """The redesigned kernels against their first versions (the sources in
+    ``first_dir``), and ``bounded_search`` at each group size of GROUPS,
+    on the same tensors and probe sets, in turns within this process.
+    Both sides launch through the same ctypes call, so ``ms`` compares
+    like with like; every version is held to the plain version first."""
+    from repro_torch.kernels import build
+
+    first = build.load_variant([os.path.join(first_dir, f"{n}.cu")
+                                for n in ("bounded_search", "bloom_probe")])
+    current = build.load()
+    cases = {
+        "bounded_search": (
+            lambda lib: (lambda i: _raw_bounded(lib, lv, sets[i],
+                                                cfg.plr_delta)),
+            _bounded_fns(lv, sets, cfg.plr_delta)[1]),
+        "bloom_probe": (
+            lambda lib: (lambda i: _raw_bloom(lib, lv, sets[i], cfg.bloom_k)),
+            _bloom_fns(lv, sets, cfg.bloom_k)[1]),
+    }
+    for name, (make, plain) in cases.items():
+        fns = {"first": make(first), "current": make(current)}
+        mism = {tag: _compare(fn, plain)[0] for tag, fn in fns.items()}
+        if any(mism.values()):
+            fail(f"{name}: a compared version disagrees with the plain "
+                 f"version ({mism})")
+        order = ("first", "current", "current", "first")
+        dev = {tag: [] for tag in fns}
+        call = {tag: [] for tag in fns}
+        for tag in order:
+            dev[tag].append(_device_ms(fns[tag], f"{name}_rows_kernel"))
+            call[tag].append(_time(fns[tag]))
+        entry = by_name[name]
+        entry["first_version_device_ms"] = _mean(dev["first"])
+        entry["same_call"] = {"order": list(order), "device_ms": dev,
+                              "ms": call, "mismatches": mism}
+
+    src = os.path.join(os.path.dirname(build.__file__), "csrc",
+                       "bounded_search.cu")
+    libs = {g: build.load_variant([src], (f"-DBOUNDED_SEARCH_GROUP={g}",))
+            for g in GROUPS}
+    sweep = {"order": list(GROUPS + GROUPS[::-1])}
+    for delta in (cfg.plr_delta, WIDE_DELTA):
+        fns = {g: (lambda i, lib=lib, d=delta:
+                   _raw_bounded(lib, lv, sets[i], d))
+               for g, lib in libs.items()}
+        plain = _bounded_fns(lv, sets, delta)[1]
+        mism = {g: _compare(fn, plain)[0] for g, fn in fns.items()}
+        if any(mism.values()):
+            fail(f"bounded_search: a group size disagrees at delta {delta} "
+                 f"({mism})")
+        dev = {str(g): [] for g in GROUPS}
+        call = {str(g): [] for g in GROUPS}
+        for g in sweep["order"]:
+            dev[str(g)].append(_device_ms(fns[g],
+                                          "bounded_search_rows_kernel"))
+            call[str(g)].append(_time(fns[g]))
+        sweep[f"delta_{delta}"] = {"device_ms": dev, "ms": call}
+    by_name["bounded_search"]["group_sweep"] = sweep
 
 
 def stack_checks(st, fstate, launches_abc: dict, launches_de: dict) -> dict:
@@ -751,7 +901,17 @@ def stack_checks(st, fstate, launches_abc: dict, launches_de: dict) -> dict:
             "bound_by": main["bound_by"], "library_ms": None,
             "bytes_per_launch": main["bytes_per_launch"],
             "ops_per_launch": main["ops_per_launch"], "shape": main["shape"],
+            "design": "1 thread/(row, probe)", "floor_ms": _floor_ms(),
             "engine_shape": out["engine"]}
+
+
+def _floor_ms() -> float | None:
+    """The per-launch floor: device time of one trivial PyTorch kernel (an
+    int32 add) over CHECK_B elements, the least any launch takes here."""
+    import torch
+    x = torch.zeros(CHECK_B, dtype=torch.int32, device="cuda")
+    y = torch.empty_like(x)
+    return _device_ms(lambda i: torch.add(x, i, out=y), "elementwise_kernel")
 
 
 def _device_ms(fn, symbol: str) -> float | None:
@@ -806,6 +966,10 @@ def main() -> int:
                          "D and E (the bench_dist_recovery config at "
                          "4M keys instead of its 128K)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--first-version", metavar="DIR",
+                    help="time the redesigned bounded_search and "
+                         "bloom_probe against the sources in DIR, and "
+                         "bounded_search's group sizes, in turns")
     args = ap.parse_args()
 
     import torch
@@ -833,7 +997,7 @@ def main() -> int:
             print("ptxas:", line.strip())
 
     store, launches, snapshot = drive("cuda", args.keys, args.seed, card)
-    checks = kernel_checks(store, launches, snapshot)
+    checks = kernel_checks(store, launches, snapshot, args.first_version)
     for k in checks:
         if k["launches"] <= 0:
             fail(f"{k['name']} never launched on the main path")
@@ -854,9 +1018,10 @@ def main() -> int:
     finally:
         shutil.rmtree(shard_dir, ignore_errors=True)
     for k in checks:
-        if k["mismatches"] != 0:
+        wide = k.get("wide_check", {}).get("mismatches", 0)
+        if k["mismatches"] != 0 or wide != 0:
             fail(f"{k['name']} disagrees with its plain version on "
-                 f"{k['mismatches']} outputs")
+                 f"{k['mismatches']} outputs (wide check: {wide})")
     print(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": checks}))
     print(card)

@@ -7,6 +7,9 @@ The build runs at first use into ``port/build/<hash>/``, keyed by a hash
 of the sources and flags: each ``.cu`` compiles in its own nvcc process,
 all started together, then one link.  ``ptxas_log()`` returns the
 ``-Xptxas -v`` register, shared-memory and spill report of that build.
+``load_variant`` builds other sources or flags the same way into a library
+of their own, so a measurement can hold two versions of a kernel side by
+side; the port itself only calls ``load``.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["load", "ptxas_log", "NVCC_FLAGS"]
+__all__ = ["load", "load_variant", "ptxas_log", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build"
@@ -57,15 +60,16 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _digest(sources: list[Path]) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(sources: list[Path], flags: tuple[str, ...]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + flags).encode())
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-def _compile(out_dir: Path, sources: list[Path]) -> None:
+def _compile(out_dir: Path, sources: list[Path],
+             flags: tuple[str, ...]) -> None:
     """Compile every source in parallel, link, and move the library and
     the compilers' reports into ``out_dir`` atomically (a concurrent
     build of the same hash wins or loses the rename harmlessly)."""
@@ -77,7 +81,7 @@ def _compile(out_dir: Path, sources: list[Path]) -> None:
         for src in sources:
             obj = tmp / (src.stem + ".o")
             procs.append((src, obj, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                [nvcc, *NVCC_FLAGS, *flags, "-c", str(src), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         logs, failed = [], []
         for src, _, p in procs:
@@ -105,23 +109,40 @@ def _compile(out_dir: Path, sources: list[Path]) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _build(sources: list[Path],
+           flags: tuple[str, ...] = ()) -> tuple[ctypes.CDLL, str]:
+    """Build (or reuse) the library of ``sources``, bind the entry points
+    of ``SIGNATURES`` it defines, and return it with its ptxas report."""
+    out_dir = BUILD_ROOT / _digest(sources, flags)
+    if not (out_dir / LIB_NAME).exists():
+        _compile(out_dir, sources, flags)
+    lib = ctypes.CDLL(str(out_dir / LIB_NAME))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib, (out_dir / "ptxas.log").read_text()
+
+
 def load() -> ctypes.CDLL:
     """The kernels' library, built on first use and cached per process."""
     global _lib, _log
-    if _lib is not None:
-        return _lib
-    sources = _sources()
-    out_dir = BUILD_ROOT / _digest(sources)
-    if not (out_dir / LIB_NAME).exists():
-        _compile(out_dir, sources)
-    _log = (out_dir / "ptxas.log").read_text()
-    lib = ctypes.CDLL(str(out_dir / LIB_NAME))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+    if _lib is None:
+        lib, log = _build(_sources())
+        missing = [n for n in SIGNATURES if not hasattr(lib, n)]
+        if missing:
+            raise RuntimeError(f"kernel library lacks {missing}")
+        _lib, _log = lib, log
+    return _lib
+
+
+def load_variant(sources: list[Path],
+                 flags: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """A separate library of ``sources`` built with ``flags`` added (for
+    example ``-DBOUNDED_SEARCH_GROUP=8``), binding whichever entry points
+    of ``SIGNATURES`` it defines."""
+    return _build(sorted(Path(s).resolve() for s in sources), tuple(flags))[0]
 
 
 def ptxas_log() -> str:

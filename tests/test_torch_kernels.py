@@ -5,7 +5,10 @@
   test_kernels.py.
 * Rows form (F = 4 with an empty slot, mixed rows, ragged B = 4096 + 64):
   against the JAX engine's row-indexed primitives (``count_le_rows``,
-  ``binsearch_rows``, ``bloom_probe_rows``), exactly.
+  ``binsearch_rows``, ``bloom_probe_rows``) and its window arm, exactly;
+  the window search also at δ = 40 and on a level narrower than the
+  window, the filter probe at k of 1, 7 and 12 — the shapes the card tests
+  hold the CUDA kernels to.
 
 The CUDA kernels against these plain versions, on a card, are in
 test_torch_kernels_cuda.py, which imports no JAX: the port and its card
@@ -141,9 +144,10 @@ def test_sstable_search_single_file(name, block_records):
 
 # -------------------------------------------------------------- rows form
 
-def _level():
+def _level(k=K):
     """Three files of different sizes plus one empty slot, stacked as the
-    engine stacks a level; probes over every row, ragged B = 4096 + 64."""
+    engine stacks a level (filters of k hashes); probes over every row,
+    ragged B = 4096 + 64."""
     sizes = [3000, 1200, 2500]
     allk = make_dataset("osm", sum(sizes), seed=7)
     files = np.split(allk, np.cumsum(sizes)[:-1])
@@ -157,16 +161,16 @@ def _level():
           "bits": np.zeros((F, W), np.uint64), "nw": np.ones(F, np.int32),
           "starts": np.full((F, S), np.inf), "slopes": np.zeros((F, S)),
           "icepts": np.zeros((F, S)), "nseg": np.zeros(F, np.int32)}
-    for i, k in enumerate(files):
-        lv["keys"][i, : k.shape[0]] = k
-        lv["n"][i] = k.shape[0]
-        fe = k[::R]
+    for i, keys in enumerate(files):
+        lv["keys"][i, : keys.shape[0]] = keys
+        lv["n"][i] = keys.shape[0]
+        fe = keys[::R]
         lv["fences"][i, : fe.shape[0]] = fe
         lv["n_blocks"][i] = fe.shape[0]
-        w = bloom_words(k.shape[0])
-        lv["bits"][i, :w] = bloom_build_np(k, w, K)
+        w = bloom_words(keys.shape[0])
+        lv["bits"][i, :w] = bloom_build_np(keys, w, k)
         lv["nw"][i] = w
-        m = greedy_plr_np(k, delta=DELTA)
+        m = greedy_plr_np(keys, delta=DELTA)
         ns = int(m.n_segments)
         assert ns <= S
         lv["starts"][i, :ns] = np.asarray(m.starts)[:ns]
@@ -210,39 +214,61 @@ def test_plr_lookup_rows_matches_engine():
     np.testing.assert_array_equal(got, want.astype(np.int32))
 
 
-def test_bounded_search_rows_matches_engine():
-    lv, rows, probes = _level()
-    rng = np.random.default_rng(9)
-    true_idx = np.array([np.searchsorted(lv["keys"][r], p)
-                         for r, p in zip(rows, probes)])
-    pos = np.clip(true_idx + rng.integers(-DELTA - 2, DELTA + 3, rows.shape[0]),
-                  0, 4095).astype(np.int32)
-    # the JAX engine's LoadChunk+LocateKey arm
+def _narrow_level():
+    """Rows of C = 24 keys, narrower than a window of 2*40+3: a full row,
+    a row of 5 keys and the empty row (n = 0); ragged B = 4096 + 64."""
+    F, C, B = 3, 24, 4096 + 64
+    allk = make_dataset("osm", 29, seed=9)
+    keys = np.full((F, C), SENTINEL, np.int64)
+    keys[0] = allk[:24]
+    keys[1, :5] = allk[24:]
+    rng = np.random.default_rng(10)
+    rows = rng.integers(0, F, B).astype(np.int32)
+    probes = allk[rng.integers(0, 29, B)] + rng.integers(0, 2, B)
+    probes[-64:] = PAD_PROBE
+    return {"keys": keys, "n": np.array([24, 5, 0], np.int32)}, rows, probes
+
+
+@pytest.mark.parametrize("delta, narrow", [(DELTA, False), (40, False),
+                                           (40, True)],
+                         ids=["delta8", "delta40", "narrow-delta40"])
+def test_bounded_search_rows_matches_engine(delta, narrow):
+    lv, rows, probes = _narrow_level() if narrow else _level()
     C = lv["keys"].shape[1]
-    offs = jnp.arange(-(DELTA + 1), DELTA + 2, dtype=jnp.int32)
+    rng = np.random.default_rng(9)
+    true_idx = np.empty(rows.shape[0], np.int64)
+    for r in range(lv["keys"].shape[0]):
+        sel = rows == r
+        true_idx[sel] = np.searchsorted(lv["keys"][r], probes[sel])
+    pos = np.clip(true_idx + rng.integers(-delta - 2, delta + 3, rows.shape[0]),
+                  0, C - 1).astype(np.int32)
+    pos[::13] = 0
+    pos[6::13] = C - 1
+    # the JAX engine's LoadChunk+LocateKey arm
+    offs = jnp.arange(-(delta + 1), delta + 2, dtype=jnp.int32)
     win_idx = jnp.clip(jnp.asarray(pos)[:, None] + offs[None, :], 0, C - 1)
     win = jnp.asarray(lv["keys"])[jnp.asarray(rows)[:, None], win_idx]
     eq = win == jnp.asarray(probes)[:, None]
     rel = jnp.argmax(eq, axis=-1)
     w_idx = np.asarray(win_idx[jnp.arange(rows.shape[0]), rel])
     w_found = np.asarray(jnp.any(eq, axis=-1)) & (w_idx < lv["n"][rows])
-    t = _torch_level(lv)
-    idx, found = ops.bounded_search(t["keys"], t["n"], _t(rows), _t(pos),
-                                    _t(probes), DELTA)
+    idx, found = ops.bounded_search(_t(lv["keys"]), _t(lv["n"]), _t(rows),
+                                    _t(pos), _t(probes), delta)
     np.testing.assert_array_equal(found.numpy(), w_found)
     np.testing.assert_array_equal(idx.numpy(), w_idx)
     assert 0 < w_found.sum() < rows.shape[0]
 
 
-def test_bloom_probe_rows_matches_engine():
-    lv, rows, probes = _level()
+@pytest.mark.parametrize("k", [1, K, 12])
+def test_bloom_probe_rows_matches_engine(k):
+    lv, rows, probes = _level(k)
     probes = probes.copy()
     probes[:5] = [SENTINEL, -1, -(1 << 40), 0, PAD_PROBE]
     want = np.asarray(jeng.bloom_probe_rows(
         jnp.asarray(lv["bits"]), jnp.asarray(lv["nw"]), jnp.asarray(rows),
-        jnp.asarray(probes), K))
+        jnp.asarray(probes), k))
     t = _torch_level(lv)
-    got = ops.bloom_probe(t["bits"], t["nw"], _t(rows), _t(probes), K).numpy()
+    got = ops.bloom_probe(t["bits"], t["nw"], _t(rows), _t(probes), k).numpy()
     np.testing.assert_array_equal(got, want)
     assert 0 < want.sum() < want.shape[0]
 

@@ -5,9 +5,13 @@ runs on a machine with a card and PyTorch alone:
   python -m pytest -q -m gpu tests/test_torch_kernels_cuda.py
 
 The level is the rows-form case of test_torch_kernels.py: three files and
-an empty slot, mixed rows, ragged B = 4096 + 64 with pad lanes.  The stack
-probe takes the same filters as an (L, W) stack with a filterless row and
-a ragged batch.  The last tests drive whole stores — file- and
+an empty slot, mixed rows, ragged B = 4096 + 64 with pad lanes.  The two
+lane-group kernels also run on ragged B of 1 and 63, ``bounded_search`` at
+δ of 0, 8, 15 and 40 (windows below, at and above one warp) with pos at 0
+and C-1 and on a narrow level whose rows are shorter than the window, and
+``bloom_probe`` at k of 1, 7, 8 and 12 with a one-word filter and extreme
+keys.  The stack probe takes the same filters as an (L, W) stack with a
+filterless row and a ragged batch.  The last tests drive whole stores — file- and
 level-granularity, and the sharded store — on the card and on the CPU."""
 
 import os
@@ -29,7 +33,7 @@ PAD_PROBE = -(1 << 62)
 R, DELTA, K = 256, 8, 7
 
 
-def _level(device):
+def _level(device, k=K):
     sizes = [3000, 1200, 2500]
     allk = make_dataset("osm", sum(sizes), seed=7)
     files = np.split(allk, np.cumsum(sizes)[:-1])
@@ -42,16 +46,16 @@ def _level(device):
           "bits": np.zeros((F, W), np.uint64), "nw": np.ones(F, np.int32),
           "starts": np.full((F, S), np.inf), "slopes": np.zeros((F, S)),
           "icepts": np.zeros((F, S)), "nseg": np.zeros(F, np.int32)}
-    for i, k in enumerate(files):
-        n = k.shape[0]
-        lv["keys"][i, :n] = k
+    for i, keys in enumerate(files):
+        n = keys.shape[0]
+        lv["keys"][i, :n] = keys
         lv["n"][i] = n
-        lv["fences"][i, : -(-n // R)] = k[::R]
+        lv["fences"][i, : -(-n // R)] = keys[::R]
         lv["n_blocks"][i] = -(-n // R)
         w = bloom_words(n)
-        lv["bits"][i, :w] = bloom_build_np(k, w, K)
+        lv["bits"][i, :w] = bloom_build_np(keys, w, k)
         lv["nw"][i] = w
-        m = greedy_plr_np(k, delta=DELTA)
+        m = greedy_plr_np(keys, delta=DELTA)
         ns = m.n_segments
         lv["starts"][i, :ns] = m.starts[:ns]
         lv["slopes"][i, :ns] = m.slopes[:ns]
@@ -62,20 +66,54 @@ def _level(device):
     B = 4096 + 64
     rows = rng.integers(0, F, B).astype(np.int32)
     probes = rng.choice(allk, B) + rng.integers(0, 2, B)
-    for i, k in enumerate(files):
+    for i, keys in enumerate(files):
         sel = rows == i
-        probes[sel] = rng.choice(k, sel.sum()) + rng.integers(0, 2, sel.sum())
+        probes[sel] = (rng.choice(keys, sel.sum())
+                       + rng.integers(0, 2, sel.sum()))
     probes[-64:] = PAD_PROBE
-    t = {k: torch.from_numpy(v).to(device) for k, v in lv.items()}
-    return t, torch.from_numpy(rows).to(device), torch.from_numpy(probes).to(device)
-
-
-def _kernel_vs_plain(name, call):
-    if not torch.cuda.is_available():
-        pytest.skip("no CUDA device")
-    t, r, p = _level("cuda")
+    t = {n: torch.from_numpy(v).to(device) for n, v in lv.items()}
+    r = torch.from_numpy(rows).to(device)
+    p = torch.from_numpy(probes).to(device)
     pos = ref.plr_lookup_rows_ref(t["starts"], t["slopes"], t["icepts"],
                                   t["nseg"], t["n"], r, p)
+    return t, r, p, pos
+
+
+def _narrow_level(device, k=K):
+    """Rows of C = 24 keys, narrower than the widest window (2*40+3): a
+    full row, a row of 5 keys and the empty row (n = 0), pos anywhere in
+    [0, C-1]."""
+    F, C, B = 3, 24, 4096 + 64
+    allk = make_dataset("osm", 29, seed=9)
+    keys = np.full((F, C), SENTINEL, np.int64)
+    keys[0] = allk[:24]
+    keys[1, :5] = allk[24:]
+    n = np.array([24, 5, 0], np.int32)
+    rng = np.random.default_rng(10)
+    rows = rng.integers(0, F, B).astype(np.int32)
+    probes = allk[rng.integers(0, 29, B)] + rng.integers(0, 2, B)
+    probes[-64:] = PAD_PROBE
+    pos = rng.integers(0, C, B).astype(np.int32)
+    t = {"keys": torch.from_numpy(keys).to(device),
+         "n": torch.from_numpy(n).to(device)}
+    return (t, torch.from_numpy(rows).to(device),
+            torch.from_numpy(probes).to(device),
+            torch.from_numpy(pos).to(device))
+
+
+def _kernel_vs_plain(name, call, B=4096 + 64, k=K, narrow=False):
+    """``call(t, rows, probes, pos) -> (kernel out, plain out)`` on the
+    first B lanes of a level (the last min(64, B // 8) of them pad lanes),
+    with pos at 0 and at C-1 on every 13th lane; every output lane of the
+    kernel must equal the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    t, r, p, pos = (_narrow_level if narrow else _level)("cuda", k)
+    r, p, pos = r[:B].clone(), p[:B].clone(), pos[:B].clone()
+    p[B - min(64, B // 8):] = PAD_PROBE
+    C = t["keys"].shape[1]
+    pos[::13] = 0
+    pos[6::13] = C - 1
     before = ops.launches[name]
     got, want = call(t, r, p, pos)
     torch.cuda.synchronize()
@@ -84,6 +122,7 @@ def _kernel_vs_plain(name, call):
     want = want if isinstance(want, tuple) else (want,)
     for g, w in zip(got, want):
         assert g.device.type == "cuda" and g.dtype == w.dtype
+        assert g.shape == (B,)
         torch.testing.assert_close(g.cpu(), w.cpu(), rtol=0, atol=0)
 
 
@@ -97,17 +136,35 @@ def test_plr_lookup_cuda_matches_plain():
 
 
 @pytest.mark.gpu
-def test_bounded_search_cuda_matches_plain():
+@pytest.mark.parametrize("B", [1, 63, 4096 + 64])
+@pytest.mark.parametrize("delta", [0, 8, 15, 40])
+@pytest.mark.parametrize("narrow", [False, True], ids=["wide", "narrow"])
+def test_bounded_search_cuda_matches_plain(narrow, delta, B):
     _kernel_vs_plain("bounded_search", lambda t, r, p, pos: (
-        ops.bounded_search(t["keys"], t["n"], r, pos, p, DELTA),
-        ref.bounded_search_rows_ref(t["keys"], t["n"], r, pos, p, DELTA)))
+        ops.bounded_search(t["keys"], t["n"], r, pos, p, delta),
+        ref.bounded_search_rows_ref(t["keys"], t["n"], r, pos, p, delta)),
+        B=B, narrow=narrow)
 
 
 @pytest.mark.gpu
-def test_bloom_probe_cuda_matches_plain():
-    _kernel_vs_plain("bloom_probe", lambda t, r, p, pos: (
-        ops.bloom_probe(t["bits"], t["nw"], r, p, K),
-        ref.bloom_probe_rows_ref(t["bits"], t["nw"], r, p, K)))
+@pytest.mark.parametrize("B", [1, 63, 4096 + 64])
+@pytest.mark.parametrize("k", [1, 7, 8, 12])
+def test_bloom_probe_cuda_matches_plain(k, B):
+    def call(t, r, p, pos):
+        # the empty slot gets a one-word filter (nw = 1) of five keys, and
+        # the first lanes probe the extreme keys
+        few = make_dataset("osm", 5, seed=11)
+        t["bits"][3, 0] = int(bloom_build_np(few, 1, k).view(np.int64)[0])
+        t["nw"][3] = 1
+        on3 = torch.nonzero(r == 3)[:5, 0]
+        p[on3] = torch.from_numpy(few[: on3.shape[0]]).to(p.device)
+        special = torch.tensor([SENTINEL, -1, 0, -(1 << 40), PAD_PROBE],
+                               device=p.device)
+        p[: min(5, B)] = special[: min(5, B)]
+        return (ops.bloom_probe(t["bits"], t["nw"], r, p, k),
+                ref.bloom_probe_rows_ref(t["bits"], t["nw"], r, p, k))
+
+    _kernel_vs_plain("bloom_probe", call, B=B, k=k)
 
 
 @pytest.mark.gpu
@@ -123,7 +180,7 @@ def test_sstable_search_cuda_matches_plain():
 def test_bloom_probe_stack_cuda_matches_plain():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
-    t, _, p = _level("cuda")
+    t, _, p, _ = _level("cuda")
     nw = t["nw"].clone()
     nw[3] = 0                            # the empty slot: no filter
     for B in (4096 + 64, 4096 + 37, 1):
