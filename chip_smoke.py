@@ -31,17 +31,20 @@
    launched.
 4. Holds each kernel against its plain PyTorch version on the same CUDA
    tensors at the live state's shapes (4096 probes; the stack probe at
-   both of its live shapes; ``bounded_search`` also at δ = 40 and
-   ``bloom_probe`` at k = 12), times both with CUDA events and
+   both of its live shapes; ``plr_lookup`` also at phase D's stacked shard
+   tables and phase E's one-row level model; ``bounded_search`` also at
+   δ = 40 and ``bloom_probe`` at k = 12), times both with CUDA events and
    torch.profiler, and computes the kernel's lower bound from the bytes its
    probes must gather and the per-launch floor (the device time of one
    trivial PyTorch kernel over 4096 elements).
-5. With ``--first-version DIR`` (a directory holding earlier
-   ``bounded_search.cu`` and ``bloom_probe.cu``): builds them into a
-   library of their own and times them against the current kernels in
-   turns (first, current, current, first) on the same tensors, and times
-   ``bounded_search`` built with groups of 8, 16 and 32 lanes a probe
-   (8, 16, 32, 32, 16, 8).  Every version is held to the plain version.
+5. With ``--first-version DIR`` (a directory holding earlier sources of
+   any of the five kernels, ``<name>.cu``): builds them into a library of
+   their own and times each against its current build in turns (first,
+   current, current, first) on the same tensors, and times the lane-group
+   kernels built with groups of 8, 16 and 32 lanes a probe (8, 16, 32, 32,
+   16, 8): ``bounded_search`` at δ 8 and 40, ``sstable_search`` at L3 and
+   ``plr_lookup`` at L3 and at phase E's level model.  Every build is held
+   to the plain version first.
 
 Output: one line per phase, a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit from nvidia-smi, and last the ``{"ok": true, ...}``
@@ -68,9 +71,10 @@ NONTENSOR_OPS_PER_S = 67e12    # H100 SXM non-tensor FP32 rate (data sheet)
 CHECK_B = 4096                 # probes per kernel launch in the checks
 TIMED_BATCHES = 32             # distinct probe sets rotated while timing
 TIMED_ROUNDS = 4
+PROFILE_TRIES = 3              # profiled passes at most, for a whole one
 WIDE_DELTA = 40                # window wider than one warp's group
 WIDE_K = 12                    # more hashes than one group of 8 lanes
-GROUPS = (8, 16, 32)           # bounded_search lanes per probe, timed
+GROUPS = (8, 16, 32)           # lanes per probe of the group kernels, timed
 
 
 def fail(msg: str) -> None:
@@ -531,6 +535,19 @@ def drive_sharded(device: str, n_keys: int, seed: int, card: str,
 # kernels against their plain versions
 # ----------------------------------------------------------------------------
 
+KERNELS = ("plr_lookup", "bounded_search", "bloom_probe", "sstable_search",
+           "bloom_probe_stack")
+GROUP_MACROS = {"bounded_search": "BOUNDED_SEARCH_GROUP",
+                "plr_lookup": "PLR_LOOKUP_GROUP",
+                "sstable_search": "SSTABLE_SEARCH_GROUP"}
+
+
+def _symbol(name: str) -> str:
+    """The profiler's name of kernel ``name``'s CUDA function."""
+    return ("bloom_probe_stack_kernel" if name == "bloom_probe_stack"
+            else f"{name}_rows_kernel")
+
+
 def _steps(n):
     """Bisect steps over a range of n entries, elementwise."""
     import torch
@@ -555,6 +572,44 @@ def _compare(kern, plain) -> tuple[int, float]:
     return mism, err
 
 
+def _measure(kern, plain, work, symbol: str) -> dict:
+    """``kern`` against ``plain`` over every probe set, both timed, and the
+    bound from ``work(i)`` = (bytes, operations) probe set i needs."""
+    mism, err = _compare(kern, plain)
+    rec = {"mismatches": mism, "max_abs_err": err, "ms": _time(kern),
+           "plain_ms": _time(plain), "device_ms": _device_ms(kern, symbol)}
+    w = [work(i) for i in range(TIMED_BATCHES)]
+    b = sum(x for x, _ in w) / TIMED_BATCHES
+    o = sum(y for _, y in w) / TIMED_BATCHES
+    bound_b = b / HBM_BYTES_PER_S * 1e3
+    bound_o = o / NONTENSOR_OPS_PER_S * 1e3
+    return {**rec, "bound_ms": max(bound_b, bound_o),
+            "bound_by": "bytes" if bound_b >= bound_o else "operations",
+            "bytes_per_launch": b, "ops_per_launch": o}
+
+
+def _plr_work(tables, sets):
+    """Bytes and operations a bisect over probe set i's segment tables
+    needs: each probe's key, row, nseg, n and output (24 B) and its
+    ceil(log2(nseg+1)) starts, slope and intercept (8 B each)."""
+    starts, nseg = tables[0], tables[3]
+
+    def work(i):
+        st = _steps(nseg[sets[i][0].long()].clamp(1, starts.shape[1]))
+        return int((24 + 8 * (st + 2)).sum()), int((4 * st + 4).sum())
+    return work
+
+
+def _plr_fns(tables, sets):
+    """``plr_lookup`` over ``tables`` = (starts, slopes, icepts, nseg, n)
+    on probe set i = (rows, probes, ...): (its wrapper, its plain
+    version)."""
+    from repro_torch.kernels import ops, ref
+    return (lambda i: ops.plr_lookup(*tables, sets[i][0], sets[i][1]),
+            lambda i: ref.plr_lookup_rows_ref(*tables, sets[i][0],
+                                              sets[i][1]))
+
+
 def _bounded_fns(lv, sets, delta: int):
     """``bounded_search`` at ``delta`` on probe set i: (its wrapper, its
     plain version)."""
@@ -576,19 +631,163 @@ def _bloom_fns(lv, sets, k: int):
                                                sets[i][0], sets[i][1], k))
 
 
+def _sstable_fns(lv, sets, R: int):
+    """``sstable_search`` with blocks of ``R`` on probe set i: (its
+    wrapper, its plain version)."""
+    from repro_torch.kernels import ops, ref
+    return (lambda i: ops.sstable_search(lv.fences, lv.keys, lv.n_blocks,
+                                         lv.n, sets[i][0], sets[i][1], R),
+            lambda i: ref.sstable_search_rows_ref(lv.fences, lv.keys,
+                                                  lv.n_blocks, lv.n,
+                                                  sets[i][0], sets[i][1], R))
+
+
+# raw launches of a library's C entry points on the current stream, for
+# comparing builds (no launch count: these are not the main path)
+
+def _raw(fn, *args) -> None:
+    import torch
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        fail(f"variant launch failed: cudaError {err}")
+
+
+def _out(B: int, dtype, dev):
+    import torch
+    return torch.empty(B, dtype=dtype, device=dev)
+
+
+def _raw_plr(lib, tables, s):
+    import torch
+    rows, p = s[0], s[1]
+    pos = _out(p.shape[0], torch.int32, p.device)
+    _raw(lib.plr_lookup_rows, *(t.data_ptr() for t in tables),
+         rows.data_ptr(), p.data_ptr(), pos.data_ptr(), p.shape[0],
+         tables[0].shape[1])
+    return pos
+
+
+def _raw_bounded(lib, lv, s, delta: int):
+    import torch
+    rows, p, pos = s
+    idx = _out(p.shape[0], torch.int32, p.device)
+    found = _out(p.shape[0], torch.bool, p.device)
+    _raw(lib.bounded_search_rows, lv.keys.data_ptr(), lv.n.data_ptr(),
+         rows.data_ptr(), pos.data_ptr(), p.data_ptr(), idx.data_ptr(),
+         found.data_ptr(), p.shape[0], lv.keys.shape[1], delta)
+    return idx, found
+
+
+def _raw_bloom(lib, lv, s, k: int):
+    import torch
+    rows, p = s[0], s[1]
+    maybe = _out(p.shape[0], torch.bool, p.device)
+    _raw(lib.bloom_probe_rows, lv.bloom.data_ptr(), lv.bloom_nw.data_ptr(),
+         rows.data_ptr(), p.data_ptr(), maybe.data_ptr(), p.shape[0],
+         lv.bloom.shape[1], k)
+    return maybe
+
+
+def _raw_sstable(lib, lv, s, R: int):
+    import torch
+    rows, p = s[0], s[1]
+    idx = _out(p.shape[0], torch.int32, p.device)
+    found = _out(p.shape[0], torch.bool, p.device)
+    _raw(lib.sstable_search_rows, lv.fences.data_ptr(), lv.keys.data_ptr(),
+         lv.n_blocks.data_ptr(), lv.n.data_ptr(), rows.data_ptr(),
+         p.data_ptr(), idx.data_ptr(), found.data_ptr(), p.shape[0],
+         lv.fences.shape[1], lv.keys.shape[1], R)
+    return idx, found
+
+
+def _raw_stack(lib, bits, nw, p, k: int):
+    import torch
+    maybe = torch.empty((bits.shape[0], p.shape[0]), dtype=torch.bool,
+                        device=p.device)
+    _raw(lib.bloom_probe_stack, bits.data_ptr(), nw.data_ptr(), p.data_ptr(),
+         maybe.data_ptr(), bits.shape[0], p.shape[0], bits.shape[1], k)
+    return maybe
+
+
+def _mean(xs):
+    return None if any(x is None for x in xs) else sum(xs) / len(xs)
+
+
+def _turns(name: str, fns: dict, plain, order) -> dict:
+    """Every build of ``fns`` held to the plain version first (a mismatch
+    fails the run), then device ms and call ms of each in ``order``, on
+    the same tensors and probe sets within this process."""
+    mism = {str(tag): _compare(fn, plain)[0] for tag, fn in fns.items()}
+    if any(mism.values()):
+        fail(f"{name}: a compared build disagrees with the plain version "
+             f"({mism})")
+    dev = {str(tag): [] for tag in fns}
+    call = {str(tag): [] for tag in fns}
+    for tag in order:
+        dev[str(tag)].append(_device_ms(fns[tag], _symbol(name)))
+        call[str(tag)].append(_time(fns[tag]))
+    return {"order": [str(t) for t in order], "device_ms": dev, "ms": call,
+            "mismatches": mism}
+
+
+class Variants:
+    """The builds ``--first-version DIR`` compares: ``first``, a library of
+    the earlier sources in DIR (``names``: the kernels DIR holds a ``.cu``
+    of), and ``groups``, {G: the lane-group kernels built with G lanes a
+    probe}, all built at once.  Both sides of a comparison launch through
+    the same ctypes call, so call ms compares like with like."""
+
+    def __init__(self, first_dir: str):
+        from concurrent.futures import ThreadPoolExecutor
+        from repro_torch.kernels import build
+        srcs = [os.path.join(first_dir, f"{n}.cu") for n in KERNELS
+                if os.path.exists(os.path.join(first_dir, f"{n}.cu"))]
+        if not srcs:
+            fail(f"--first-version: no kernel source in {first_dir}")
+        self.names = {os.path.basename(s)[:-3] for s in srcs}
+        group_srcs = [build.CSRC / f"{n}.cu" for n in GROUP_MACROS]
+        with ThreadPoolExecutor(1 + len(GROUPS)) as ex:
+            first = ex.submit(build.load_variant, srcs)
+            groups = {g: ex.submit(build.load_variant, group_srcs,
+                                   tuple(f"-D{m}={g}"
+                                         for m in GROUP_MACROS.values()))
+                      for g in GROUPS}
+            self.first = first.result()
+            self.groups = {g: f.result() for g, f in groups.items()}
+
+    def compare(self, entry: dict, name: str, make, plain) -> None:
+        """First version against the current build, in turns first,
+        current, current, first, when DIR holds ``name``; ``make(lib)``
+        gives probe set i's launch on a library."""
+        from repro_torch.kernels import build
+        if name not in self.names:
+            return
+        entry["same_call"] = _turns(
+            name, {"first": make(self.first), "current": make(build.load())},
+            plain, ("first", "current", "current", "first"))
+        entry["first_version_device_ms"] = _mean(
+            entry["same_call"]["device_ms"]["first"])
+
+    def sweep(self, name: str, make, plain) -> dict:
+        """Each group size of GROUPS, in turns 8, 16, 32, 32, 16, 8."""
+        return _turns(name, {g: make(lib) for g, lib in self.groups.items()},
+                      plain, GROUPS + GROUPS[::-1])
+
+
 def kernel_checks(store, launches: dict, snapshot,
-                  first_dir: str | None = None) -> list:
+                  variants: Variants | None = None) -> list:
     import torch
     from repro_torch.core.bloom import hash2_torch, umod_torch
     from repro_torch.core.store import _PAD_PROBE
-    from repro_torch.kernels import ops
     from repro_torch.kernels import ref
 
     cfg = store.engine.cfg
+    R = cfg.block_records
     li, lv, tables = snapshot
     dev = lv.keys.device
     level_keys = np.concatenate([t.keys for t in tables])
     lo, hi = int(level_keys[0]), int(level_keys[-1])
+    models = (lv.starts, lv.slopes, lv.icepts, lv.nseg, lv.n)
     sets = []
     for s in range(TIMED_BATCHES):
         r = np.random.default_rng(1000 + s)
@@ -598,20 +797,12 @@ def kernel_checks(store, launches: dict, snapshot,
         pt = torch.from_numpy(p).to(dev)
         f, _ = store.engine._find_file(lv, pt)
         rows = f.to(torch.int32)
-        pos = ref.plr_lookup_rows_ref(lv.starts, lv.slopes, lv.icepts,
-                                      lv.nseg, lv.n, rows, pt)
-        sets.append((rows, pt, pos))
+        sets.append((rows, pt, ref.plr_lookup_rows_ref(*models, rows, pt)))
     rl = [s[0].long() for s in sets]
 
     # per kernel and probe set: (bytes, operations) this set's data needs —
     # each probe's reads counted once (8 B per gathered element), outputs
     # written once; operations are the 64-bit compares, adds and shifts
-    def w_plr(i):
-        ns = lv.nseg[rl[i]].clamp(1, lv.starts.shape[1])
-        st = _steps(ns)
-        return (int((8 + 4 + 4 + 4 + 4 + 8 * (st + 2)).sum()),
-                int((4 * st + 4).sum()))
-
     def w_bounded(i):
         rows, p, pos = sets[i]
         d = cfg.plr_delta
@@ -640,7 +831,6 @@ def kernel_checks(store, launches: dict, snapshot,
 
     def w_sstable(i):
         rows, p, _ = sets[i]
-        R = cfg.block_records
         nb = lv.n_blocks[rl[i]].clamp(1, lv.fences.shape[1])
         lo = ref._bisect_rows(lv.fences, rows, p, torch.zeros_like(rl[i]),
                               nb, "right")
@@ -652,13 +842,9 @@ def kernel_checks(store, launches: dict, snapshot,
 
     kernels = [
         ("plr_lookup", "port/repro_torch/kernels/csrc/plr_lookup.cu",
-         "src/repro/kernels/plr_lookup.py:66",
-         lambda i: ops.plr_lookup(lv.starts, lv.slopes, lv.icepts, lv.nseg,
-                                  lv.n, sets[i][0], sets[i][1]),
-         lambda i: ref.plr_lookup_rows_ref(lv.starts, lv.slopes, lv.icepts,
-                                           lv.nseg, lv.n, sets[i][0],
-                                           sets[i][1]),
-         w_plr, "1 thread/probe"),
+         "src/repro/kernels/plr_lookup.py:66", *_plr_fns(models, sets),
+         _plr_work(models, sets),
+         "group=32 lanes/probe, G-ary count search"),
         ("bounded_search", "port/repro_torch/kernels/csrc/bounded_search.cu",
          "src/repro/kernels/bounded_search.py:61",
          *_bounded_fns(lv, sets, cfg.plr_delta),
@@ -668,37 +854,17 @@ def kernel_checks(store, launches: dict, snapshot,
          *_bloom_fns(lv, sets, cfg.bloom_k),
          w_bloom, "group=8 lanes/probe, one lane a hash"),
         ("sstable_search", "port/repro_torch/kernels/csrc/sstable_search.cu",
-         "src/repro/kernels/sstable_search.py:95",
-         lambda i: ops.sstable_search(lv.fences, lv.keys, lv.n_blocks, lv.n,
-                                      sets[i][0], sets[i][1],
-                                      cfg.block_records),
-         lambda i: ref.sstable_search_rows_ref(lv.fences, lv.keys,
-                                               lv.n_blocks, lv.n, sets[i][0],
-                                               sets[i][1], cfg.block_records),
-         w_sstable, "1 thread/probe"),
+         "src/repro/kernels/sstable_search.py:95", *_sstable_fns(lv, sets, R),
+         w_sstable, "group=32 lanes/probe, G-ary count search"),
     ]
     floor_ms = _floor_ms()
     out = []
     for name, src, replaces, kern, plain, work, design in kernels:
-        mism, err = _compare(kern, plain)
-        ms = _time(kern)
-        plain_ms = _time(plain)
-        device_ms = _device_ms(kern, f"{name}_rows_kernel")
-        w = [work(i) for i in range(TIMED_BATCHES)]
-        bytes_per = sum(b for b, _ in w) / TIMED_BATCHES
-        ops_per = sum(o for _, o in w) / TIMED_BATCHES
-        bound_b = bytes_per / HBM_BYTES_PER_S * 1e3
-        bound_o = ops_per / NONTENSOR_OPS_PER_S * 1e3
         out.append({"name": name, "route": "cuda", "source": src,
-                    "replaces": replaces,
-                    "launches": launches[name],
-                    "max_abs_err": err, "mismatches": mism, "ms": ms,
-                    "device_ms": device_ms,
-                    "plain_ms": plain_ms, "bound_ms": max(bound_b, bound_o),
-                    "bound_by": "bytes" if bound_b >= bound_o else "operations",
-                    "library_ms": None, "bytes_per_launch": bytes_per,
-                    "ops_per_launch": ops_per, "design": design,
-                    "floor_ms": floor_ms,
+                    "replaces": replaces, "launches": launches[name],
+                    **_measure(kern, plain, work, _symbol(name)),
+                    "library_ms": None, "design": design,
+                    "floor_ms": floor_ms, "first_version_device_ms": None,
                     "level": li, "shape": {"F": lv.keys.shape[0],
                                            "C": lv.keys.shape[1],
                                            "S": lv.starts.shape[1],
@@ -706,8 +872,8 @@ def kernel_checks(store, launches: dict, snapshot,
                                            "NB": lv.fences.shape[1],
                                            "B": CHECK_B}})
     by_name = {k["name"]: k for k in out}
-    # the redesigned kernels past one group: δ = 40 (83 keys, three chunks
-    # of 32) and k = 12 (two chunks of 8), on the same tensors
+    # the window and filter kernels past one group: δ = 40 (83 keys, three
+    # chunks of 32) and k = 12 (two chunks of 8), on the same tensors
     wide = {"bounded_search": ({"delta": WIDE_DELTA},
                                *_bounded_fns(lv, sets, WIDE_DELTA)),
             "bloom_probe": ({"k": WIDE_K}, *_bloom_fns(lv, sets, WIDE_K))}
@@ -716,111 +882,98 @@ def kernel_checks(store, launches: dict, snapshot,
         by_name[name]["wide_check"] = {**arg, "mismatches": mism,
                                        "max_abs_err": err,
                                        "device_ms": _device_ms(
-                                           kern, f"{name}_rows_kernel")}
-        by_name[name]["first_version_device_ms"] = None
-    if first_dir is not None:
-        compare_versions(lv, sets, cfg, first_dir, by_name)
+                                           kern, _symbol(name))}
+    if variants is not None:
+        makes = {
+            "plr_lookup": lambda lib: (lambda i: _raw_plr(lib, models,
+                                                          sets[i])),
+            "bounded_search": lambda lib: (lambda i: _raw_bounded(
+                lib, lv, sets[i], cfg.plr_delta)),
+            "bloom_probe": lambda lib: (lambda i: _raw_bloom(
+                lib, lv, sets[i], cfg.bloom_k)),
+            "sstable_search": lambda lib: (lambda i: _raw_sstable(
+                lib, lv, sets[i], R)),
+        }
+        plains = {"plr_lookup": _plr_fns(models, sets)[1],
+                  "bounded_search": _bounded_fns(lv, sets, cfg.plr_delta)[1],
+                  "bloom_probe": _bloom_fns(lv, sets, cfg.bloom_k)[1],
+                  "sstable_search": _sstable_fns(lv, sets, R)[1]}
+        for name, make in makes.items():
+            variants.compare(by_name[name], name, make, plains[name])
+        for name in ("plr_lookup", "sstable_search"):
+            by_name[name]["group_sweep"] = variants.sweep(
+                name, makes[name], plains[name])
+        by_name["bounded_search"]["group_sweep"] = {
+            f"delta_{d}": variants.sweep(
+                "bounded_search",
+                lambda lib, d=d: (lambda i: _raw_bounded(lib, lv, sets[i],
+                                                         d)),
+                _bounded_fns(lv, sets, d)[1])
+            for d in (cfg.plr_delta, WIDE_DELTA)}
     return out
 
 
-def _raw(fn, *args) -> None:
-    """Launch a C entry point of a variant library on the current stream
-    (no launch count: these are comparisons, not the main path)."""
+def _probe_sets(keys: np.ndarray, dev, seed: int, rows_of) -> list:
+    """TIMED_BATCHES probe sets of CHECK_B: half ``keys``, half random in
+    their range, pad lanes at the end; ``rows_of(probes)`` gives the file
+    row of each.  Items are (rows int32, probes) on ``dev``."""
     import torch
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        fail(f"variant launch failed: cudaError {err}")
+    from repro_torch.core.store import _PAD_PROBE
+    lo, hi = int(keys.min()), int(keys.max())
+    sets = []
+    for i in range(TIMED_BATCHES):
+        r = np.random.default_rng(seed + i)
+        p = np.concatenate([r.choice(keys, CHECK_B // 2),
+                            r.integers(lo, hi, CHECK_B // 2, dtype=np.int64)])
+        p[-8:] = _PAD_PROBE
+        sets.append((torch.from_numpy(rows_of(p)).to(dev),
+                     torch.from_numpy(p).to(dev)))
+    return sets
 
 
-def _raw_bounded(lib, lv, s, delta: int):
-    import torch
-    rows, p, pos = s
-    B = p.shape[0]
-    idx = torch.empty(B, dtype=torch.int32, device=p.device)
-    found = torch.empty(B, dtype=torch.bool, device=p.device)
-    _raw(lib.bounded_search_rows, lv.keys.data_ptr(), lv.n.data_ptr(),
-         rows.data_ptr(), pos.data_ptr(), p.data_ptr(), idx.data_ptr(),
-         found.data_ptr(), B, lv.keys.shape[1], delta)
-    return idx, found
+def plr_shape_checks(st, variants: Variants | None = None) -> dict:
+    """``plr_lookup`` against its plain version at the two other shapes the
+    main path launches it at: the sharded state's stacked shard tables
+    (phase D, ``dist_get_local``, rows = owning shard) and shard 0's widest
+    level model (phase E, ``LookupEngine._probe_level_via_model``, one row
+    padded to ``level_seg_cap``).  With ``variants``, the level model's
+    shape also gets the first-version comparison and the group sweep."""
+    state = st.device_state()
+    sharded = (state["starts"], state["slopes"], state["icepts"],
+               state["nseg"], state["n"])
+    live = state["keys"][state["keys"] != np.iinfo(np.int64).max]
+    sets_d = _probe_sets(live.cpu().numpy(), live.device, 3000, st.shard_of)
+    sh = st.shards[0]
+    ds = sh.engine.build_state(sh.tree, sh.level_models)
+    li = max(range(len(ds.level_models)),
+             key=lambda i: ds.level_models[i].n_seg)
+    lm = ds.level_models[li]
+    level_model = (lm.starts, lm.slopes, lm.icepts, lm.nseg, lm.total)
+    sets_e = _probe_sets(np.concatenate([t.keys for t in sh.tree.levels[li]]),
+                         lm.starts.device, 4000,
+                         lambda p: np.zeros(p.shape, np.int32))
+    out = {}
+    for tag, tables, sets in (("shards", sharded, sets_d),
+                              ("level_model", level_model, sets_e)):
+        kern, plain = _plr_fns(tables, sets)
+        out[tag] = {**_measure(kern, plain, _plr_work(tables, sets),
+                               _symbol("plr_lookup")),
+                    "shape": {"F": tables[0].shape[0],
+                              "S": tables[0].shape[1], "B": CHECK_B,
+                              "nseg": tables[3].tolist()}}
+    out["level_model"]["level"] = li
+    if variants is not None:
+        def make(lib):
+            return lambda i: _raw_plr(lib, level_model, sets_e[i])
+        plain = _plr_fns(level_model, sets_e)[1]
+        variants.compare(out["level_model"], "plr_lookup", make, plain)
+        out["level_model"]["group_sweep"] = variants.sweep("plr_lookup",
+                                                           make, plain)
+    return out
 
 
-def _raw_bloom(lib, lv, s, k: int):
-    import torch
-    rows, p, _ = s
-    B = p.shape[0]
-    maybe = torch.empty(B, dtype=torch.bool, device=p.device)
-    _raw(lib.bloom_probe_rows, lv.bloom.data_ptr(), lv.bloom_nw.data_ptr(),
-         rows.data_ptr(), p.data_ptr(), maybe.data_ptr(), B,
-         lv.bloom.shape[1], k)
-    return maybe
-
-
-def _mean(xs):
-    return None if any(x is None for x in xs) else sum(xs) / len(xs)
-
-
-def compare_versions(lv, sets, cfg, first_dir: str, by_name: dict) -> None:
-    """The redesigned kernels against their first versions (the sources in
-    ``first_dir``), and ``bounded_search`` at each group size of GROUPS,
-    on the same tensors and probe sets, in turns within this process.
-    Both sides launch through the same ctypes call, so ``ms`` compares
-    like with like; every version is held to the plain version first."""
-    from repro_torch.kernels import build
-
-    first = build.load_variant([os.path.join(first_dir, f"{n}.cu")
-                                for n in ("bounded_search", "bloom_probe")])
-    current = build.load()
-    cases = {
-        "bounded_search": (
-            lambda lib: (lambda i: _raw_bounded(lib, lv, sets[i],
-                                                cfg.plr_delta)),
-            _bounded_fns(lv, sets, cfg.plr_delta)[1]),
-        "bloom_probe": (
-            lambda lib: (lambda i: _raw_bloom(lib, lv, sets[i], cfg.bloom_k)),
-            _bloom_fns(lv, sets, cfg.bloom_k)[1]),
-    }
-    for name, (make, plain) in cases.items():
-        fns = {"first": make(first), "current": make(current)}
-        mism = {tag: _compare(fn, plain)[0] for tag, fn in fns.items()}
-        if any(mism.values()):
-            fail(f"{name}: a compared version disagrees with the plain "
-                 f"version ({mism})")
-        order = ("first", "current", "current", "first")
-        dev = {tag: [] for tag in fns}
-        call = {tag: [] for tag in fns}
-        for tag in order:
-            dev[tag].append(_device_ms(fns[tag], f"{name}_rows_kernel"))
-            call[tag].append(_time(fns[tag]))
-        entry = by_name[name]
-        entry["first_version_device_ms"] = _mean(dev["first"])
-        entry["same_call"] = {"order": list(order), "device_ms": dev,
-                              "ms": call, "mismatches": mism}
-
-    src = os.path.join(os.path.dirname(build.__file__), "csrc",
-                       "bounded_search.cu")
-    libs = {g: build.load_variant([src], (f"-DBOUNDED_SEARCH_GROUP={g}",))
-            for g in GROUPS}
-    sweep = {"order": list(GROUPS + GROUPS[::-1])}
-    for delta in (cfg.plr_delta, WIDE_DELTA):
-        fns = {g: (lambda i, lib=lib, d=delta:
-                   _raw_bounded(lib, lv, sets[i], d))
-               for g, lib in libs.items()}
-        plain = _bounded_fns(lv, sets, delta)[1]
-        mism = {g: _compare(fn, plain)[0] for g, fn in fns.items()}
-        if any(mism.values()):
-            fail(f"bounded_search: a group size disagrees at delta {delta} "
-                 f"({mism})")
-        dev = {str(g): [] for g in GROUPS}
-        call = {str(g): [] for g in GROUPS}
-        for g in sweep["order"]:
-            dev[str(g)].append(_device_ms(fns[g],
-                                          "bounded_search_rows_kernel"))
-            call[str(g)].append(_time(fns[g]))
-        sweep[f"delta_{delta}"] = {"device_ms": dev, "ms": call}
-    by_name["bounded_search"]["group_sweep"] = sweep
-
-
-def stack_checks(st, fstate, launches_abc: dict, launches_de: dict) -> dict:
+def stack_checks(st, fstate, launches_abc: dict, launches_de: dict,
+                 variants: Variants | None = None) -> dict:
     """``bloom_probe_stack`` against its plain version at both of its live
     shapes — the sharded state's (4, fw) shard rows (phase D) and the shard
     engine's (7, W) FilterState (phase E) — over rotated probe sets of
@@ -829,37 +982,33 @@ def stack_checks(st, fstate, launches_abc: dict, launches_de: dict) -> dict:
     (7, W) shape's sit under ``engine_shape``.  ``launches_abc`` and
     ``launches_de`` are the counts read after phases A–C and D–E."""
     import torch
-    from repro_torch.core.store import _PAD_PROBE
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref
 
     state = st.device_state()
     k = st.shards[0].cfg.lsm.bloom_k
     keys = state["keys"][state["keys"] != np.iinfo(np.int64).max]
-    lo, hi = int(keys.min()), int(keys.max())
-    dev = keys.device
-    sets = []
-    for i in range(TIMED_BATCHES):
-        r = np.random.default_rng(2000 + i)
-        p = np.concatenate([r.choice(keys.cpu().numpy(), CHECK_B // 2),
-                            r.integers(lo, hi, CHECK_B // 2, dtype=np.int64)])
-        p[-8:] = _PAD_PROBE
-        sets.append(torch.from_numpy(p).to(dev))
+    sets = [p for _, p in _probe_sets(keys.cpu().numpy(), keys.device, 2000,
+                                      lambda p: np.zeros(p.shape, np.int32))]
 
-    def work(bits, nw, i):
+    def work(bits, nw):
         """Bytes and operations probe set ``i`` needs: each probe read once
         (8 B), nw (4 B a row), and per (row, probe) of a row with a filter
         the words up to the first clear bit (8 B each; the kernel reads all
         k, a data-dependent early exit needs no more), one output byte per
         (row, probe); ~10 64-bit operations of hashing a probe and ~6 per
         word."""
-        hits = ref.bloom_probe_stack_hits(bits, nw, sets[i], k).long()
-        # hash t's word is needed only while every earlier hash's bit is set
-        reached = torch.cat([torch.ones_like(hits[:1]), hits.cumprod(0)[:-1]])
-        n_words = int((reached * (nw > 0).long()[None, :, None]).sum())
-        L = bits.shape[0]
-        return (8 * CHECK_B + 4 * L + 8 * n_words + L * CHECK_B,
-                10 * CHECK_B + 6 * n_words)
+        def at(i):
+            hits = ref.bloom_probe_stack_hits(bits, nw, sets[i], k).long()
+            # hash t's word is needed only while every earlier hash's bit
+            # is set
+            reached = torch.cat([torch.ones_like(hits[:1]),
+                                 hits.cumprod(0)[:-1]])
+            n_words = int((reached * (nw > 0).long()[None, :, None]).sum())
+            L = bits.shape[0]
+            return (8 * CHECK_B + 4 * L + 8 * n_words + L * CHECK_B,
+                    10 * CHECK_B + 6 * n_words)
+        return at
 
     out = {}
     for tag, bits, nw in (("shards", state["fbits"], state["fnw"]),
@@ -868,41 +1017,34 @@ def stack_checks(st, fstate, launches_abc: dict, launches_de: dict) -> dict:
                                                               k))
         plain = (lambda i, b=bits, n=nw: ref.bloom_probe_stack_ref(
             b, n, sets[i], k))
-        mism = 0
-        for i in range(TIMED_BATCHES):
-            mism += int((kern(i) != plain(i)).sum())
-        torch.cuda.synchronize()
-        w = [work(bits, nw, i) for i in range(TIMED_BATCHES)]
-        b = sum(x for x, _ in w) / TIMED_BATCHES
-        o = sum(y for _, y in w) / TIMED_BATCHES
-        bound_b = b / HBM_BYTES_PER_S * 1e3
-        bound_o = o / NONTENSOR_OPS_PER_S * 1e3
-        out[tag] = {"ms": _time(kern), "plain_ms": _time(plain),
-                    "device_ms": _device_ms(kern, "bloom_probe_stack_kernel"),
-                    "mismatches": mism, "max_abs_err": float(mism > 0),
-                    "bound_ms": max(bound_b, bound_o),
-                    "bound_by": "bytes" if bound_b >= bound_o else "operations",
-                    "bytes_per_launch": b, "ops_per_launch": o,
+        out[tag] = {**_measure(kern, plain, work(bits, nw),
+                               _symbol("bloom_probe_stack")),
                     "shape": {"L": bits.shape[0], "W": bits.shape[1],
                               "B": CHECK_B,
                               "rows_with_filter": int((nw > 0).sum())}}
     main = out["shards"]
-    return {"name": "bloom_probe_stack", "route": "cuda",
-            "source": "port/repro_torch/kernels/csrc/bloom_probe_stack.cu",
-            "replaces": "src/repro/kernels/bloom_probe.py:121",
-            "launches": (launches_abc["bloom_probe_stack"]
-                         + launches_de["bloom_probe_stack"]),
-            "launches_abc": launches_abc["bloom_probe_stack"],
-            "launches_de": launches_de["bloom_probe_stack"],
-            "max_abs_err": max(v["max_abs_err"] for v in out.values()),
-            "mismatches": sum(v["mismatches"] for v in out.values()),
-            "ms": main["ms"], "device_ms": main["device_ms"],
-            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": None,
-            "bytes_per_launch": main["bytes_per_launch"],
-            "ops_per_launch": main["ops_per_launch"], "shape": main["shape"],
-            "design": "1 thread/(row, probe)", "floor_ms": _floor_ms(),
-            "engine_shape": out["engine"]}
+    entry = {"name": "bloom_probe_stack", "route": "cuda",
+             "source": "port/repro_torch/kernels/csrc/bloom_probe_stack.cu",
+             "replaces": "src/repro/kernels/bloom_probe.py:121",
+             "launches": (launches_abc["bloom_probe_stack"]
+                          + launches_de["bloom_probe_stack"]),
+             "launches_abc": launches_abc["bloom_probe_stack"],
+             "launches_de": launches_de["bloom_probe_stack"],
+             **{key: main[key] for key in (
+                 "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                 "bytes_per_launch", "ops_per_launch", "shape")},
+             "max_abs_err": max(v["max_abs_err"] for v in out.values()),
+             "mismatches": sum(v["mismatches"] for v in out.values()),
+             "library_ms": None, "design": "1 thread/(row, probe)",
+             "floor_ms": _floor_ms(), "first_version_device_ms": None,
+             "engine_shape": out["engine"]}
+    if variants is not None:
+        bits, nw = state["fbits"], state["fnw"]
+        variants.compare(
+            entry, "bloom_probe_stack",
+            lambda lib: (lambda i: _raw_stack(lib, bits, nw, sets[i], k)),
+            lambda i: ref.bloom_probe_stack_ref(bits, nw, sets[i], k))
+    return entry
 
 
 def _floor_ms() -> float | None:
@@ -917,23 +1059,40 @@ def _floor_ms() -> float | None:
 def _device_ms(fn, symbol: str) -> float | None:
     """Mean device time per launch of the kernel named ``symbol``, from
     torch.profiler over one pass of the probe sets: the kernel's own run
-    time, without the host's launch path that back-to-back calls wait on."""
+    time, without the host's launch path that back-to-back calls wait on.
+    The profiler runs a warm-up pass first and records the second (it
+    drops launches at the start of a session).  A pass that still records
+    fewer launches than it made is repeated, up to PROFILE_TRIES passes,
+    and the pass that recorded the most is reported (None if none recorded
+    a launch)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(TIMED_BATCHES):
-            fn(i)
+    best = (0, 0.0)
+    for _ in range(PROFILE_TRIES):
+        recorded = []
         torch.cuda.synchronize()
-    us = calls = 0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and symbol in e.key:
-            us += getattr(e, "self_device_time_total",
-                          getattr(e, "self_cuda_time_total", 0.0))
-            calls += e.count
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: recorded.append(
+                         p.key_averages())) as prof:
+            for _ in range(2):
+                for i in range(TIMED_BATCHES):
+                    fn(i)
+                torch.cuda.synchronize()
+                prof.step()
+        us = calls = 0
+        for e in (recorded[0] if recorded else []):
+            if e.device_type == DeviceType.CUDA and symbol in e.key:
+                us += getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0.0))
+                calls += e.count
+        best = max(best, (calls, us))
+        if calls >= TIMED_BATCHES:
+            break
+    calls, us = best
     return us / calls / 1e3 if calls else None
 
 
@@ -967,9 +1126,9 @@ def main() -> int:
                          "4M keys instead of its 128K)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--first-version", metavar="DIR",
-                    help="time the redesigned bounded_search and "
-                         "bloom_probe against the sources in DIR, and "
-                         "bounded_search's group sizes, in turns")
+                    help="time every kernel whose .cu DIR holds against "
+                         "its current build, and the lane-group kernels at "
+                         "8, 16 and 32 lanes a probe, in turns")
     args = ap.parse_args()
 
     import torch
@@ -995,9 +1154,16 @@ def main() -> int:
         if ("registers" in line or "spill" in line or line.startswith("==")
                 or "Compiling entry" in line):
             print("ptxas:", line.strip())
+    variants = None
+    if args.first_version:
+        t0 = time.perf_counter()
+        variants = Variants(args.first_version)
+        print(f"compared builds ({sorted(variants.names)} from "
+              f"{args.first_version}; groups {GROUPS}) built in "
+              f"{time.perf_counter() - t0:.1f}s")
 
     store, launches, snapshot = drive("cuda", args.keys, args.seed, card)
-    checks = kernel_checks(store, launches, snapshot, args.first_version)
+    checks = kernel_checks(store, launches, snapshot, variants)
     for k in checks:
         if k["launches"] <= 0:
             fail(f"{k['name']} never launched on the main path")
@@ -1013,15 +1179,22 @@ def main() -> int:
             k["launches_abc"] = k["launches"]
             k["launches_de"] = launches_de[k["name"]]
             k["launches"] += launches_de[k["name"]]
-        checks.append(stack_checks(st, fstate, launches, launches_de))
+        plr = next(k for k in checks if k["name"] == "plr_lookup")
+        shapes = plr_shape_checks(st, variants)
+        plr["shard_shape"] = shapes["shards"]
+        plr["level_model_shape"] = shapes["level_model"]
+        checks.append(stack_checks(st, fstate, launches, launches_de,
+                                   variants))
         st.close()
     finally:
         shutil.rmtree(shard_dir, ignore_errors=True)
     for k in checks:
-        wide = k.get("wide_check", {}).get("mismatches", 0)
-        if k["mismatches"] != 0 or wide != 0:
+        other = {tag: k[tag]["mismatches"]
+                 for tag in ("wide_check", "shard_shape", "level_model_shape",
+                             "engine_shape") if tag in k}
+        if k["mismatches"] != 0 or any(other.values()):
             fail(f"{k['name']} disagrees with its plain version on "
-                 f"{k['mismatches']} outputs (wide check: {wide})")
+                 f"{k['mismatches']} outputs (other checks: {other})")
     print(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": checks}))
     print(card)

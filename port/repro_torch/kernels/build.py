@@ -4,9 +4,10 @@ The sources have a plain C interface (pointers and the stream as
 ``void*``, sizes as ``int``, a ``cudaError_t`` returned as ``int``), so
 they compile in seconds without PyTorch's headers and bind with ``ctypes``.
 The build runs at first use into ``port/build/<hash>/``, keyed by a hash
-of the sources and flags: each ``.cu`` compiles in its own nvcc process,
-all started together, then one link.  ``ptxas_log()`` returns the
-``-Xptxas -v`` register, shared-memory and spill report of that build.
+of the sources, their headers and the flags: each ``.cu`` compiles in its
+own nvcc process, all started together, then one link.  ``ptxas_log()``
+returns the ``-Xptxas -v`` register, shared-memory and spill report of
+that build.
 ``load_variant`` builds other sources or flags the same way into a library
 of their own, so a measurement can hold two versions of a kernel side by
 side; the port itself only calls ``load``.
@@ -61,8 +62,11 @@ def _sources() -> list[Path]:
 
 
 def _digest(sources: list[Path], flags: tuple[str, ...]) -> str:
+    """Hash of the flags, the sources and the headers (``*.cuh``) beside
+    them, which the sources may include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS + flags).encode())
-    for src in sources:
+    headers = sorted({hd for src in sources for hd in src.parent.glob("*.cuh")})
+    for src in sources + headers:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -32,6 +32,8 @@ from repro.core.plr import greedy_plr_np  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
+import test_torch_kernels_cuda as cuda_cases  # noqa: E402  (no JAX there)
+
 SENTINEL = np.iinfo(np.int64).max
 PAD_PROBE = -(1 << 62)
 R = 256          # block records
@@ -291,6 +293,79 @@ def test_sstable_search_rows_matches_engine():
     np.testing.assert_array_equal(found.numpy(), w_found)
     np.testing.assert_array_equal(idx.numpy(), w_idx)
     assert 0 < w_found.sum() < rows.shape[0]
+
+
+@pytest.mark.parametrize("case", ["edges", "level_model"])
+def test_plr_lookup_rows_edges_match_engine(case):
+    """The (4, 100) edge table (nseg 0, 1, S; duplicated starts; extreme
+    probes) against ``count_le_rows``, and phase E's one-row level model
+    (3600 segments in 65536) against ``binsearch_rows`` — the engine's arm
+    for each width (src/repro/core/engine.py, _probe_file_model)."""
+    tb = (cuda_cases.plr_edge_table if case == "edges"
+          else cuda_cases.plr_level_model_table)()
+    rows, probes = tb["rows"], tb["probes"]
+    starts = jnp.asarray(tb["starts"])
+    rj = jnp.asarray(rows)
+    p = jnp.asarray(probes).astype(jnp.float64)
+    if starts.shape[-1] <= 1024:
+        cnt = jeng.count_le_rows(starts, rj, p)
+    else:
+        cnt = jeng.binsearch_rows(starts, rj, p, jnp.zeros_like(rj),
+                                  jnp.maximum(jnp.asarray(tb["nseg"])[rj], 1),
+                                  side="right")
+    seg = jnp.maximum(cnt - 1, 0)
+    y = jnp.asarray(tb["slopes"])[rj, seg] * p
+    y = y + jnp.asarray(tb["icepts"])[rj, seg]
+    want = np.clip(np.round(np.asarray(y)), 0,
+                   np.maximum(tb["n"][rows] - 1, 0)).astype(np.int32)
+    got = ops.plr_lookup(*(_t(tb[k]) for k in ("starts", "slopes", "icepts",
+                                               "nseg", "n", "rows",
+                                               "probes"))).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert np.unique(want).shape[0] > 100
+
+
+@pytest.mark.parametrize("reference", ["pallas", "engine"])
+def test_sstable_search_rows_edges_match_reference(reference):
+    """Blocks of 100 records, a partial last block, one block, the empty
+    row, probes at fences and between blocks: against the Pallas kernel in
+    interpret mode (one file at a time, 128 probes of each row) or the
+    engine's baseline arm (fence compare-count, block compare-count,
+    src/repro/core/engine.py _probe_file_baseline), on found lanes."""
+    tb = cuda_cases.sstable_edge_table()
+    Rb, C = tb["R"], tb["keys"].shape[1]
+    rows, probes = tb["rows"], tb["probes"]
+    idx, found = ops.sstable_search(*(_t(tb[k]) for k in (
+        "fences", "keys", "n_blocks", "n", "rows", "probes")), Rb)
+    idx, found = idx.numpy(), found.numpy()
+    if reference == "pallas":
+        lanes = np.concatenate([np.flatnonzero(rows == r)[:128]
+                                for r in range(tb["keys"].shape[0])])
+        w_idx = np.empty(lanes.shape[0], np.int32)
+        w_found = np.empty(lanes.shape[0], bool)
+        for r in range(tb["keys"].shape[0]):
+            sel = rows[lanes] == r
+            i, f = jops.sstable_search(
+                jnp.asarray(tb["fences"][r]), jnp.asarray(tb["keys"][r]),
+                jnp.asarray(probes[lanes[sel]]), int(tb["n_blocks"][r]),
+                int(tb["n"][r]), block_records=Rb, impl="pallas_interpret",
+                block_b=int(sel.sum()))
+            w_idx[sel], w_found[sel] = np.asarray(i), np.asarray(f)
+        idx, found = idx[lanes], found[lanes]
+    else:
+        rj, pj = jnp.asarray(rows), jnp.asarray(probes)
+        keys = jnp.asarray(tb["keys"])
+        blk = jnp.maximum(jeng.count_le_rows(jnp.asarray(tb["fences"]), rj,
+                                             pj) - 1, 0)
+        base = blk * Rb
+        cols = jnp.clip(base[:, None] + jnp.arange(Rb)[None], 0, C - 1)
+        within = jnp.sum(keys[rj[:, None], cols] < pj[:, None], axis=-1)
+        w_idx = np.asarray(base + within)
+        kv = np.asarray(keys[rj, jnp.clip(base + within, 0, C - 1)])
+        w_found = (w_idx < tb["n"][rows]) & (kv == probes)
+    np.testing.assert_array_equal(found, w_found)
+    np.testing.assert_array_equal(idx[w_found], w_idx[w_found])
+    assert 0 < w_found.sum() < w_found.shape[0]
 
 
 def test_wrappers_check_inputs():

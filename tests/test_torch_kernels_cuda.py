@@ -5,15 +5,21 @@ runs on a machine with a card and PyTorch alone:
   python -m pytest -q -m gpu tests/test_torch_kernels_cuda.py
 
 The level is the rows-form case of test_torch_kernels.py: three files and
-an empty slot, mixed rows, ragged B = 4096 + 64 with pad lanes.  The two
+an empty slot, mixed rows, ragged B = 4096 + 64 with pad lanes.  The
 lane-group kernels also run on ragged B of 1 and 63, ``bounded_search`` at
 δ of 0, 8, 15 and 40 (windows below, at and above one warp) with pos at 0
 and C-1 and on a narrow level whose rows are shorter than the window, and
 ``bloom_probe`` at k of 1, 7, 8 and 12 with a one-word filter and extreme
-keys.  The stack probe takes the same filters as an (L, W) stack with a
-filterless row and a ragged batch.  The last tests drive whole stores — file- and
-level-granularity, and the sharded store — on the card and on the CPU."""
+keys.  ``plr_lookup`` and ``sstable_search`` run through their wrappers
+and built with groups of 8, 16 and 32 lanes a probe, on the level and on
+edge tables (``plr_edge_table``, ``plr_level_model_table``,
+``sstable_edge_table``, which test_torch_kernels.py holds to the JAX
+package on the CPU).  The stack probe takes the same filters as an (L, W)
+stack with a filterless row and a ragged batch.  The last tests drive
+whole stores — file- and level-granularity, and the sharded store — on the
+card and on the CPU."""
 
+import functools
 import os
 import sys
 
@@ -26,11 +32,12 @@ import torch  # noqa: E402
 from repro_torch.core.bloom import bloom_build_np, bloom_words  # noqa: E402
 from repro_torch.core.datasets import make_dataset  # noqa: E402
 from repro_torch.core.plr import greedy_plr_np  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
 
 SENTINEL = np.iinfo(np.int64).max
 PAD_PROBE = -(1 << 62)
 R, DELTA, K = 256, 8, 7
+GROUPS = (8, 16, 32)       # lanes a probe that chip_smoke.py times
 
 
 def _level(device, k=K):
@@ -118,6 +125,150 @@ def _kernel_vs_plain(name, call, B=4096 + 64, k=K, narrow=False):
     got, want = call(t, r, p, pos)
     torch.cuda.synchronize()
     assert ops.launches[name] == before + 1
+    _assert_lanes_equal(got, want, B)
+
+
+# ------------------------------------- edge tables of the count searches
+# numpy, so that test_torch_kernels.py can hold the same inputs to the JAX
+# package; B = 4096 + 64 probes, the edge probes in the first lanes so that
+# B = 1 and 63 meet them too
+
+
+def _edge_lanes(rng, rows_n, pool, specials, B=4096 + 64):
+    """Rows over ``rows_n`` files and probes from ``pool``; lane i < len(
+    specials) probes specials[i] on row i % rows_n, the next 32 lanes
+    cycle over the rows."""
+    rows = rng.integers(0, rows_n, B).astype(np.int32)
+    rows[: len(specials) + 32] = np.arange(len(specials) + 32) % rows_n
+    probes = rng.choice(pool, B)
+    probes[: len(specials)] = specials
+    probes[-64:] = PAD_PROBE
+    return rows, probes
+
+
+def plr_edge_table():
+    """(F = 4, S = 100) segment tables — S no multiple of 8, 16 or 32 —
+    with nseg of 0 (one finite start at [0]), 1, S and 57, +inf beyond
+    max(nseg, 1).  The starts hold repeated keys, and keys 2^60 + [0, 2000)
+    whose doubles collide (a double's step there is 256).  Probes: every
+    start and its neighbours, below the first and above the last start,
+    int64 max, -1, 0 and the pad probe."""
+    rng = np.random.default_rng(21)
+    F, S = 4, 100
+    base = np.sort(np.concatenate([
+        rng.integers(-(1 << 40), 1 << 40, 60),
+        (1 << 60) + rng.integers(0, 2000, 40)]))
+    base[10:14] = base[10]
+    starts = np.full((F, S), np.inf)
+    starts[0, 0] = base[50]
+    starts[1, 0] = base[0]
+    starts[2] = base
+    starts[3, :57] = np.sort(rng.choice(base, 57))
+    nseg = np.array([0, 1, S, 57], np.int32)
+    n = np.array([1000, 1, 5000, 0], np.int32)
+    slopes = rng.uniform(0, 4e-9, (F, S))
+    icepts = rng.uniform(-100, 5000, (F, S))
+    pool = np.concatenate([base, base + 1, base - 1])
+    specials = np.array([SENTINEL, -1, 0, PAD_PROBE, base[0] - 1,
+                         base[-1] + 1, base[10], base[-1], base[50]],
+                        np.int64)
+    rows, probes = _edge_lanes(rng, F, pool, specials)
+    return {"starts": starts, "slopes": slopes, "icepts": icepts,
+            "nseg": nseg, "n": n, "rows": rows, "probes": probes}
+
+
+def plr_level_model_table():
+    """Phase E's shape: one row padded to the level model's 65536 entries
+    with 3600 live segments (3 rounds of 16 or 32 lanes), interpolating
+    2^18 ar keys; probes are keys, keys + 1 and the extremes."""
+    rng = np.random.default_rng(22)
+    keys = make_dataset("ar", 1 << 18, seed=23)
+    at = np.sort(rng.choice(np.arange(1, keys.shape[0] - 1), 3599,
+                            replace=False))
+    at = np.concatenate([[0], at, [keys.shape[0] - 1]])
+    x = keys[at].astype(np.float64)
+    slopes = np.diff(at) / np.diff(x)
+    S, ns = 1 << 16, 3600
+    t = {"starts": np.full((1, S), np.inf), "slopes": np.zeros((1, S)),
+         "icepts": np.zeros((1, S)),
+         "nseg": np.array([ns], np.int32),
+         "n": np.array([keys.shape[0]], np.int32)}
+    t["starts"][0, :ns] = x[:-1]
+    t["slopes"][0, :ns] = slopes
+    t["icepts"][0, :ns] = at[:-1] - slopes * x[:-1]
+    specials = np.array([SENTINEL, -1, 0, PAD_PROBE, keys[0], keys[-1],
+                         keys[-1] + 1], np.int64)
+    rows, probes = _edge_lanes(rng, 1, np.concatenate([keys, keys + 1]),
+                               specials)
+    return {**t, "rows": rows, "probes": probes}
+
+
+def sstable_edge_table():
+    """Blocks of R = 100 records (no power of two) in (F = 4, C = 1000)
+    rows, NB = 10: n = 950 (a partial last block), n = 60 with one block,
+    the empty row (n = 0, n_blocks = 0) and n = 1000 (full blocks).
+    Probes: every fence, the key before each fence + 1 (between two
+    blocks: idx at the block's end), keys, keys + 1 and the extremes."""
+    rng = np.random.default_rng(24)
+    F, C, Rb = 4, 1000, 100
+    allk = make_dataset("osm", 950 + 60 + 1000, seed=25)
+    n = np.array([950, 60, 0, 1000], np.int32)
+    keys = np.full((F, C), SENTINEL, np.int64)
+    fences = np.full((F, C // Rb), SENTINEL, np.int64)
+    off = 0
+    for i, ni in enumerate(n):
+        keys[i, :ni] = allk[off: off + ni]
+        fences[i, : -(-ni // Rb)] = keys[i, :ni:Rb]
+        off += ni
+    n_blocks = -(-n // Rb)
+    live = keys[keys != SENTINEL]
+    bounds = fences[fences != SENTINEL]
+    pool = np.concatenate([live, live + 1, bounds,
+                           keys[3, Rb - 1: C - 1: Rb] + 1])
+    specials = np.array([SENTINEL, -1, 0, PAD_PROBE, live.min() - 1,
+                         live.max() + 1, fences[0, 3], keys[3, 199] + 1,
+                         keys[0, 949] + 1], np.int64)
+    rows, probes = _edge_lanes(rng, F, pool, specials)
+    return {"fences": fences, "keys": keys, "n_blocks": n_blocks.astype(
+        np.int32), "n": n, "rows": rows, "probes": probes, "R": Rb}
+
+
+@functools.lru_cache(maxsize=None)
+def _group_lib(name, G):
+    """``name``.cu built with G lanes a probe, in a library of its own."""
+    macro = {"plr_lookup": "PLR_LOOKUP_GROUP",
+             "sstable_search": "SSTABLE_SEARCH_GROUP"}[name]
+    return build.load_variant([build.CSRC / f"{name}.cu"],
+                              (f"-D{macro}={G}",))
+
+
+def _on_card(table, B):
+    """The table's tensors on the card, rows and probes cut to B lanes."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+         for k, v in table.items() if k != "R"}
+    t["rows"] = t["rows"][:B].clone()
+    t["probes"] = t["probes"][:B].clone()
+    return t
+
+
+def _through(name, G, wrapper, raw):
+    """Run ``wrapper()`` (G None: the default build, one launch counted)
+    or ``raw(lib, stream)`` on the library built with G lanes a probe."""
+    if G is None:
+        before = ops.launches[name]
+        out = wrapper()
+        torch.cuda.synchronize()
+        assert ops.launches[name] == before + 1
+        return out
+    out, err = raw(_group_lib(name, G), torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    return out
+
+
+def _assert_lanes_equal(got, want, B):
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     for g, w in zip(got, want):
@@ -126,13 +277,43 @@ def _kernel_vs_plain(name, call, B=4096 + 64, k=K, narrow=False):
         torch.testing.assert_close(g.cpu(), w.cpu(), rtol=0, atol=0)
 
 
+def _level_plr_table():
+    t, r, p, _ = _level("cpu")
+    return {**{k: t[k].numpy() for k in ("starts", "slopes", "icepts",
+                                          "nseg", "n")},
+            "rows": r.numpy(), "probes": p.numpy()}
+
+
+def _level_sstable_table():
+    t, r, p, _ = _level("cpu")
+    return {**{k: t[k].numpy() for k in ("fences", "keys", "n_blocks", "n")},
+            "rows": r.numpy(), "probes": p.numpy(), "R": R}
+
+
+PLR_TABLES = {"level": _level_plr_table, "edges": plr_edge_table,
+              "level_model": plr_level_model_table}
+SSTABLE_TABLES = {"level": _level_sstable_table, "edges": sstable_edge_table}
+
+
 @pytest.mark.gpu
-def test_plr_lookup_cuda_matches_plain():
-    _kernel_vs_plain("plr_lookup", lambda t, r, p, pos: (
-        ops.plr_lookup(t["starts"], t["slopes"], t["icepts"], t["nseg"],
-                       t["n"], r, p),
-        ref.plr_lookup_rows_ref(t["starts"], t["slopes"], t["icepts"],
-                                t["nseg"], t["n"], r, p)))
+@pytest.mark.parametrize("G", [None, *GROUPS],
+                         ids=["wrapper", *(f"G{g}" for g in GROUPS)])
+@pytest.mark.parametrize("B", [1, 63, 4096 + 64])
+@pytest.mark.parametrize("case", list(PLR_TABLES))
+def test_plr_lookup_cuda_matches_plain(case, B, G):
+    t = _on_card(PLR_TABLES[case](), B)
+    args = [t[k] for k in ("starts", "slopes", "icepts", "nseg", "n", "rows",
+                           "probes")]
+
+    def raw(lib, stream):
+        pos = torch.empty(B, dtype=torch.int32, device="cuda")
+        err = lib.plr_lookup_rows(*(a.data_ptr() for a in args),
+                                  pos.data_ptr(), B, t["starts"].shape[1],
+                                  stream)
+        return pos, err
+
+    got = _through("plr_lookup", G, lambda: ops.plr_lookup(*args), raw)
+    _assert_lanes_equal(got, ref.plr_lookup_rows_ref(*args), B)
 
 
 @pytest.mark.gpu
@@ -168,12 +349,32 @@ def test_bloom_probe_cuda_matches_plain(k, B):
 
 
 @pytest.mark.gpu
-def test_sstable_search_cuda_matches_plain():
-    _kernel_vs_plain("sstable_search", lambda t, r, p, pos: (
-        ops.sstable_search(t["fences"], t["keys"], t["n_blocks"], t["n"], r,
-                           p, R),
-        ref.sstable_search_rows_ref(t["fences"], t["keys"], t["n_blocks"],
-                                    t["n"], r, p, R)))
+@pytest.mark.parametrize("G", [None, *GROUPS],
+                         ids=["wrapper", *(f"G{g}" for g in GROUPS)])
+@pytest.mark.parametrize("B", [1, 63, 4096 + 64])
+@pytest.mark.parametrize("case", list(SSTABLE_TABLES))
+def test_sstable_search_cuda_matches_plain(case, B, G):
+    table = SSTABLE_TABLES[case]()
+    Rb = table["R"]
+    t = _on_card(table, B)
+    args = [t[k] for k in ("fences", "keys", "n_blocks", "n", "rows",
+                           "probes")]
+
+    def raw(lib, stream):
+        idx = torch.empty(B, dtype=torch.int32, device="cuda")
+        found = torch.empty(B, dtype=torch.bool, device="cuda")
+        err = lib.sstable_search_rows(*(a.data_ptr() for a in args),
+                                      idx.data_ptr(), found.data_ptr(), B,
+                                      t["fences"].shape[1],
+                                      t["keys"].shape[1], Rb, stream)
+        return (idx, found), err
+
+    got = _through("sstable_search", G,
+                   lambda: ops.sstable_search(*args, Rb), raw)
+    want = ref.sstable_search_rows_ref(*args, Rb)
+    _assert_lanes_equal(got, want, B)
+    if B > 64:
+        assert 0 < int(want[1].sum()) < B
 
 
 @pytest.mark.gpu
