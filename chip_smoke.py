@@ -40,11 +40,13 @@
 5. With ``--first-version DIR`` (a directory holding earlier sources of
    any of the five kernels, ``<name>.cu``): builds them into a library of
    their own and times each against its current build in turns (first,
-   current, current, first) on the same tensors, and times the lane-group
-   kernels built with groups of 8, 16 and 32 lanes a probe (8, 16, 32, 32,
-   16, 8): ``bounded_search`` at δ 8 and 40, ``sstable_search`` at L3 and
-   ``plr_lookup`` at L3 and at phase E's level model.  Every build is held
-   to the plain version first.
+   current, current, first) on the same tensors (the stack probe at both
+   of its live shapes), and times the lane-group kernels built with groups
+   of 8, 16 and 32 lanes a probe (8, 16, 32, 32, 16, 8): ``bounded_search``
+   at δ 8 and 40, ``sstable_search`` at L3 and ``plr_lookup`` at L3 and at
+   phase E's level model; and the stack probe built with 1, 2, 4 and 8
+   lanes a (row, probe) (1, 2, 4, 8, 8, 4, 2, 1) at both of its shapes.
+   Every build is held to the plain version first.
 
 Output: one line per phase, a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit from nvidia-smi, and last the ``{"ok": true, ...}``
@@ -75,6 +77,7 @@ PROFILE_TRIES = 3              # profiled passes at most, for a whole one
 WIDE_DELTA = 40                # window wider than one warp's group
 WIDE_K = 12                    # more hashes than one group of 8 lanes
 GROUPS = (8, 16, 32)           # lanes per probe of the group kernels, timed
+STACK_GROUPS = (1, 2, 4, 8)    # lanes per (row, probe) of the stack probe
 
 
 def fail(msg: str) -> None:
@@ -540,6 +543,7 @@ KERNELS = ("plr_lookup", "bounded_search", "bloom_probe", "sstable_search",
 GROUP_MACROS = {"bounded_search": "BOUNDED_SEARCH_GROUP",
                 "plr_lookup": "PLR_LOOKUP_GROUP",
                 "sstable_search": "SSTABLE_SEARCH_GROUP"}
+STACK_GROUP_MACRO = "BLOOM_PROBE_STACK_GROUP"
 
 
 def _symbol(name: str) -> str:
@@ -733,9 +737,10 @@ def _turns(name: str, fns: dict, plain, order) -> dict:
 class Variants:
     """The builds ``--first-version DIR`` compares: ``first``, a library of
     the earlier sources in DIR (``names``: the kernels DIR holds a ``.cu``
-    of), and ``groups``, {G: the lane-group kernels built with G lanes a
-    probe}, all built at once.  Both sides of a comparison launch through
-    the same ctypes call, so call ms compares like with like."""
+    of), ``groups``, {G: the lane-group kernels built with G lanes a
+    probe}, and ``stack_groups``, {G: the stack probe built with G lanes a
+    (row, probe)}, all built at once.  Both sides of a comparison launch
+    through the same ctypes call, so call ms compares like with like."""
 
     def __init__(self, first_dir: str):
         from concurrent.futures import ThreadPoolExecutor
@@ -746,14 +751,19 @@ class Variants:
             fail(f"--first-version: no kernel source in {first_dir}")
         self.names = {os.path.basename(s)[:-3] for s in srcs}
         group_srcs = [build.CSRC / f"{n}.cu" for n in GROUP_MACROS]
-        with ThreadPoolExecutor(1 + len(GROUPS)) as ex:
+        stack_src = [build.CSRC / "bloom_probe_stack.cu"]
+        with ThreadPoolExecutor(1 + len(GROUPS) + len(STACK_GROUPS)) as ex:
             first = ex.submit(build.load_variant, srcs)
             groups = {g: ex.submit(build.load_variant, group_srcs,
                                    tuple(f"-D{m}={g}"
                                          for m in GROUP_MACROS.values()))
                       for g in GROUPS}
+            stack = {g: ex.submit(build.load_variant, stack_src,
+                                  (f"-D{STACK_GROUP_MACRO}={g}",))
+                     for g in STACK_GROUPS}
             self.first = first.result()
             self.groups = {g: f.result() for g, f in groups.items()}
+            self.stack_groups = {g: f.result() for g, f in stack.items()}
 
     def compare(self, entry: dict, name: str, make, plain) -> None:
         """First version against the current build, in turns first,
@@ -769,9 +779,13 @@ class Variants:
             entry["same_call"]["device_ms"]["first"])
 
     def sweep(self, name: str, make, plain) -> dict:
-        """Each group size of GROUPS, in turns 8, 16, 32, 32, 16, 8."""
-        return _turns(name, {g: make(lib) for g, lib in self.groups.items()},
-                      plain, GROUPS + GROUPS[::-1])
+        """Each group size, in turns up and down: GROUPS (8, 16, 32, 32,
+        16, 8), or STACK_GROUPS for the stack probe (1, 2, 4, 8, 8, 4, 2,
+        1)."""
+        libs = (self.stack_groups if name == "bloom_probe_stack"
+                else self.groups)
+        return _turns(name, {g: make(lib) for g, lib in libs.items()},
+                      plain, tuple(libs) + tuple(libs)[::-1])
 
 
 def kernel_checks(store, launches: dict, snapshot,
@@ -979,8 +993,10 @@ def stack_checks(st, fstate, launches_abc: dict, launches_de: dict,
     engine's (7, W) FilterState (phase E) — over rotated probe sets of
     4096 (half keys of the rows, half random, pad lanes at the end).  The
     entry's times are those of the (4, fw) shape, the server's path; the
-    (7, W) shape's sit under ``engine_shape``.  ``launches_abc`` and
-    ``launches_de`` are the counts read after phases A–C and D–E."""
+    (7, W) shape's sit under ``engine_shape``.  With ``variants``, each
+    shape also gets the first-version comparison and the group sweep.
+    ``launches_abc`` and ``launches_de`` are the counts read after phases
+    A–C and D–E."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref
@@ -1035,15 +1051,24 @@ def stack_checks(st, fstate, launches_abc: dict, launches_de: dict,
                  "bytes_per_launch", "ops_per_launch", "shape")},
              "max_abs_err": max(v["max_abs_err"] for v in out.values()),
              "mismatches": sum(v["mismatches"] for v in out.values()),
-             "library_ms": None, "design": "1 thread/(row, probe)",
+             "library_ms": None,
+             "design": "grid (probe tiles, rows), group=8 lanes/(row, "
+                       "probe), one lane a hash; filterless rows exit per "
+                       "block",
              "floor_ms": _floor_ms(), "first_version_device_ms": None,
              "engine_shape": out["engine"]}
     if variants is not None:
-        bits, nw = state["fbits"], state["fnw"]
-        variants.compare(
-            entry, "bloom_probe_stack",
-            lambda lib: (lambda i: _raw_stack(lib, bits, nw, sets[i], k)),
-            lambda i: ref.bloom_probe_stack_ref(bits, nw, sets[i], k))
+        for rec, bits, nw in ((entry, state["fbits"], state["fnw"]),
+                              (out["engine"], fstate.bits, fstate.nw)):
+            def make(lib, b=bits, n=nw):
+                return lambda i: _raw_stack(lib, b, n, sets[i], k)
+
+            def plain(i, b=bits, n=nw):
+                return ref.bloom_probe_stack_ref(b, n, sets[i], k)
+
+            variants.compare(rec, "bloom_probe_stack", make, plain)
+            rec["group_sweep"] = variants.sweep("bloom_probe_stack", make,
+                                                plain)
     return entry
 
 
@@ -1127,8 +1152,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--first-version", metavar="DIR",
                     help="time every kernel whose .cu DIR holds against "
-                         "its current build, and the lane-group kernels at "
-                         "8, 16 and 32 lanes a probe, in turns")
+                         "its current build, the lane-group kernels at 8, "
+                         "16 and 32 lanes a probe and the stack probe at 1, "
+                         "2, 4 and 8, in turns")
     args = ap.parse_args()
 
     import torch
@@ -1159,7 +1185,8 @@ def main() -> int:
         t0 = time.perf_counter()
         variants = Variants(args.first_version)
         print(f"compared builds ({sorted(variants.names)} from "
-              f"{args.first_version}; groups {GROUPS}) built in "
+              f"{args.first_version}; groups {GROUPS}, stack groups "
+              f"{STACK_GROUPS}) built in "
               f"{time.perf_counter() - t0:.1f}s")
 
     store, launches, snapshot = drive("cuda", args.keys, args.seed, card)

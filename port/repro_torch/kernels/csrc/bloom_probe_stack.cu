@@ -5,55 +5,83 @@
 // Replaces the TPU kernel
 // src/repro/kernels/bloom_probe.py::bloom_probe_stack_pallas (body
 // _bloom_stack_kernel), whose grid walks (level, probe block) with one
-// level's filter resident in VMEM.  Here the grid is flat over the L*B
-// (row, probe) pairs; the filter rows stay in device memory (a level's
-// filter can be megabytes) and the batch's gathers are served from L2.
+// level's filter resident in VMEM.  Here the filter rows stay in device
+// memory (a level's filter can be megabytes) and the batch's gathers are
+// served from L2.
 //
 // Bound on the card: bytes of random 8-byte gathers.  Each (row, probe)
-// pair reads the probe (8 B) and k filter words at hashed offsets of its
-// row (8 B each), and writes 1 B; a row with n_words == 0 reads nothing.
-// Operations (the 64-bit hash, k unsigned modulos) are far below the rate.
+// pair reads the probe (8 B) and its filter words up to the first clear bit
+// (8 B each, at most k), and writes 1 B; a row with n_words == 0 reads
+// nothing.  Operations (the 64-bit hash, the modulus) are far below the
+// rate.  chip_smoke.py computes the bound from each run's data.
 //
-// First version: one thread per (row, probe).  All k word addresses depend
-// only on the hash, so the loop has no early exit: the k loads are
-// independent and can be in flight together instead of each waiting on
-// the previous bit test.  Native unsigned 64-bit math — the mixes
-// 0x9E3779B97F4A7C15 and 0xC2B2AE3D27D4EB4F, shifts 29 and 31, |1 on h2 —
-// with the modulus n_words[row]*64 of the build-time word count, and the
-// word index clipped to W-1, exactly as bloom_probe_stack_ref does.
+// Design.  The grid is (probe tiles, rows): blockIdx.y is the row, so
+// nw[row], the reciprocal 1/nw and the row's base pointer are the same for
+// the whole block, and a row without a filter (nw == 0) is one
+// block-uniform branch: the block writes True over its tile and leaves,
+// with no hash and no load.  In a row with a filter, a group of G lanes
+// owns one (row, probe): lane t takes hash t, its word index
+// ((h1 + t*h2) >> 6) mod nw by bloom_hash.cuh's 58-by-31-bit remainder (no
+// 64-bit divide) and one load of row[min(word, W-1)].  When k > G, lane t
+// also takes hashes t + G, t + 2G, ... in the same loop: the group walks
+// chunks of G hashes with no early exit, every load independent of the
+// others.  One __ballot_sync over the group, after the loop, decides the
+// probe (a ballot per chunk would hold each chunk's loads behind the last
+// one's vote).  The group's lane 0 writes maybe[row*B + b], so a block's
+// writes are contiguous, and a group past the batch's end leaves together.
+//
+// G is BLOOM_PROBE_STACK_GROUP (chip_smoke.py --first-version times 1, 2, 4
+// and 8).  At G = 1 a thread walks all k hashes of its (row, probe) alone,
+// the first version's layout without its 64-bit modulus.  At phase D's
+// (4, B = 4096) and G = 8: 512 blocks of 256 threads, one wave on 132 SMs.
+// Each lane of a group repeats the hash and the reciprocal, and a warp
+// issues them once for its 32 / G (row, probe) pairs: the larger G, the
+// more instructions a pair costs, against fewer loads waiting in line.
 #include <cuda_runtime.h>
+
+#include "bloom_hash.cuh"
+#include "lane_group.cuh"
+
+#ifndef BLOOM_PROBE_STACK_GROUP
+#define BLOOM_PROBE_STACK_GROUP 8
+#endif
 
 namespace {
 
-__global__ void bloom_probe_stack_kernel(
+constexpr int G = BLOOM_PROBE_STACK_GROUP;  // lanes (hashes) per (row, probe)
+constexpr int kThreads = 256;
+constexpr int kTile = kThreads / G;  // probes a block
+
+__global__ void __launch_bounds__(kThreads) bloom_probe_stack_kernel(
     const unsigned long long* __restrict__ bits, const int* __restrict__ nw,
-    const long long* __restrict__ probes, bool* __restrict__ maybe, int L,
-    int B, int W, int k) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)L * B) return;
-  const int r = (int)(i / B);
-  const int b = (int)(i - (long long)r * B);
+    const long long* __restrict__ probes, bool* __restrict__ maybe, int B,
+    int W, int k) {
+  const int r = blockIdx.y;
+  const int b0 = blockIdx.x * kTile;
+  bool* __restrict__ out = maybe + (size_t)r * (size_t)B;
   const int nwr = __ldg(nw + r);
   if (nwr <= 0) {  // no filter at this row: never prune without evidence
-    maybe[i] = true;
+    const int j = b0 + (int)threadIdx.x;
+    if (threadIdx.x < kTile && j < B) out[j] = true;
     return;
   }
+  const int b = b0 + (int)threadIdx.x / G;
+  if (b >= B) return;  // the whole group leaves together
+  const int lane = threadIdx.x & (G - 1);
   const unsigned long long* row = bits + (size_t)r * (size_t)W;
-  const unsigned long long kk = (unsigned long long)__ldg(probes + b);
-  unsigned long long h1 = kk * 0x9E3779B97F4A7C15ULL;
-  h1 ^= h1 >> 29;
-  unsigned long long h2 = (kk * 0xC2B2AE3D27D4EB4FULL) | 1ULL;
-  h2 ^= h2 >> 31;
-  const unsigned long long m = (unsigned long long)nwr * 64ULL;
-  const unsigned long long wmax = (unsigned long long)(W - 1);
-  unsigned long long all = 1ULL;  // bitwise AND: no branch between loads
+  const bloom_hash::Pair h = bloom_hash::pair(__ldg(probes + b));
+  const long long d = nwr;
+  const double inv = __drcp_rn((double)d);
+  const long long wmax = (long long)W - 1;
+  bool clear = false;  // any of this lane's hashes finds its bit clear
 #pragma unroll 4
-  for (int t = 0; t < k; ++t) {
-    const unsigned long long bit = (h1 + (unsigned long long)t * h2) % m;
-    const unsigned long long word = __ldg(row + min(bit >> 6, wmax));
-    all &= word >> (bit & 63ULL);
-  }
-  maybe[i] = (all & 1ULL) != 0ULL;
+  for (int t = lane; t < k; t += G)  // independent loads, no early exit
+    clear |= bloom_hash::bit_clear(row, h, t, d, inv, wmax);
+  // a group of one has no vote to take (a ballot whose mask is the lane
+  // alone would sync 32 groups of one in each warp)
+  const bool all =
+      G == 1 ? !clear : __ballot_sync(lane_group::mask<G>(), clear) == 0u;
+  if (lane == 0) out[b] = all;
 }
 
 }  // namespace
@@ -62,11 +90,9 @@ extern "C" int bloom_probe_stack(const void* bits, const void* nw,
                                  const void* probes, void* maybe, int L,
                                  int B, int W, int k, void* stream) {
   if (L <= 0 || B <= 0) return 0;
-  const int threads = 256;
-  const long long total = (long long)L * B;
-  const int blocks = (int)((total + threads - 1) / threads);
-  bloom_probe_stack_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const dim3 grid((unsigned)((B + kTile - 1) / kTile), (unsigned)L);
+  bloom_probe_stack_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const unsigned long long*)bits, (const int*)nw,
-      (const long long*)probes, (bool*)maybe, L, B, W, k);
+      (const long long*)probes, (bool*)maybe, B, W, k);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 """The filter plane in the port: the plain version of the stack-probe
 kernel (``ops.bloom_probe_stack`` on CPU tensors) against repro's
-``bloom_probe_stack_ref`` and its Pallas kernel in interpret mode, exactly;
+``bloom_probe_stack_ref`` and its Pallas kernel in interpret mode, exactly,
+on level-shaped stacks and on the card tests' edge stacks;
 then the engine's device filter probe (``LookupEngine.filter_probe``, and
 ``lookup_async`` with ``fstate`` and no host mask) against the host-screen
 mask path and repro's engine with ``filter_impl="ref"``."""
@@ -25,6 +26,8 @@ from repro_torch.core import filters as pfilters  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from test_torch_engine import (B_LIVE, N_LEVELS, _filter_inputs,  # noqa: E402
                                _probes, _trees)
+
+import test_torch_kernels_cuda as cuda_cases  # noqa: E402  (no JAX there)
 
 
 def _stack(rng, n_levels=3, n_keys=2000, bpk=10, k=7):
@@ -75,6 +78,30 @@ def test_bloom_probe_stack_matches_reference(B, k):
     for li, ks in enumerate(key_sets):         # no false negatives
         p = ks[:B]
         assert _port_probe(bits, nw, p, k)[li].all()
+
+
+@pytest.mark.parametrize("L", [1, 7])
+@pytest.mark.parametrize("k", [1, 8, 12])
+def test_bloom_probe_stack_edge_stacks_match_reference(k, L):
+    """The card tests' edge stacks (``stack_edge_table``: filterless rows
+    first, in the middle and last, a one-word filter, rows whose nw is
+    below the padded W; 0, -1, int64 min and max and the pad probe among
+    4096 + 37 probes): plain version == repro's jnp oracle == its Pallas
+    kernel in interpret mode, exactly."""
+    tb = cuda_cases.stack_edge_table(L, k)
+    got = ops.bloom_probe_stack(torch.from_numpy(tb["bits"]),
+                                torch.from_numpy(tb["nw"]),
+                                torch.from_numpy(tb["probes"]), k).numpy()
+    bits = jnp.asarray(tb["bits"].view(np.uint64))
+    nw, probes = jnp.asarray(tb["nw"]), jnp.asarray(tb["probes"])
+    want = np.asarray(jref.bloom_probe_stack_ref(bits, nw, probes, k))
+    pal = np.asarray(jops.bloom_probe_stack(bits, nw, probes, k_hashes=k,
+                                            impl="pallas_interpret"))
+    assert got.shape == (L, tb["probes"].shape[0]) and got.dtype == bool
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, pal)
+    assert got[tb["nw"] == 0].all()
+    assert got[tb["nw"] > 0].any() and not got[tb["nw"] > 0].all()
 
 
 def test_bloom_probe_stack_filterless_row_is_all_maybe():

@@ -14,10 +14,14 @@ keys.  ``plr_lookup`` and ``sstable_search`` run through their wrappers
 and built with groups of 8, 16 and 32 lanes a probe, on the level and on
 edge tables (``plr_edge_table``, ``plr_level_model_table``,
 ``sstable_edge_table``, which test_torch_kernels.py holds to the JAX
-package on the CPU).  The stack probe takes the same filters as an (L, W)
-stack with a filterless row and a ragged batch.  The last tests drive
-whole stores — file- and level-granularity, and the sharded store — on the
-card and on the CPU."""
+package on the CPU).  The stack probe runs through its wrapper and built
+with 1, 2, 4 and 8 lanes a (row, probe), at k of 1, 7, 8 and 12 on the
+(L, W) stacks of ``stack_edge_table`` (L of 1, 4 and 7, filterless rows
+first, in the middle and last, a one-word filter, rows whose nw is below
+the padded W; test_torch_filter_plane.py holds them to the JAX package)
+and ragged B of 1, 63 and 4096 + 37.  The last tests drive whole stores —
+file- and level-granularity, and the sharded store — on the card and on
+the CPU."""
 
 import functools
 import os
@@ -38,6 +42,7 @@ SENTINEL = np.iinfo(np.int64).max
 PAD_PROBE = -(1 << 62)
 R, DELTA, K = 256, 8, 7
 GROUPS = (8, 16, 32)       # lanes a probe that chip_smoke.py times
+STACK_GROUPS = (1, 2, 4, 8)  # lanes a (row, probe) of the stack probe
 
 
 def _level(device, k=K):
@@ -233,23 +238,68 @@ def sstable_edge_table():
         np.int32), "n": n, "rows": rows, "probes": probes, "R": Rb}
 
 
+# rows of the stack edge tables: no filter, a one-word filter of 5 keys,
+# a filter as wide as the padded W, and two whose nw is below it
+STACK_LAYOUTS = {1: ("partial",),
+                 4: ("none", "one_word", "full", "partial"),
+                 7: ("full", "partial", "none", "one_word", "small", "full",
+                     "none")}
+STACK_W = 512
+STACK_KEYS = {"none": 400, "one_word": 5, "full": 3000, "partial": 1200,
+              "small": 700}
+
+
+def stack_edge_table(L, k):
+    """An (L, STACK_W) filter stack of the layout STACK_LAYOUTS[L], each
+    row built with k hashes over its own keys (nw = 0 for "none", whose
+    keys are still probed), and 4096 + 37 probes: 0, -1, int64 min and
+    max and the pad probe first, then keys of every row, keys + 1, and
+    random int64s."""
+    rng = np.random.default_rng(26 + L)
+    layout = STACK_LAYOUTS[L]
+    allk = make_dataset("osm", sum(STACK_KEYS[r] for r in layout),
+                        seed=27 + L)
+    sets = np.split(rng.permutation(allk),
+                    np.cumsum([STACK_KEYS[r] for r in layout])[:-1])
+    bits = np.zeros((L, STACK_W), np.uint64)
+    nw = np.zeros(L, np.int32)
+    for i, (kind, keys) in enumerate(zip(layout, sets)):
+        w = {"none": 0, "one_word": 1, "full": STACK_W}.get(
+            kind, bloom_words(keys.shape[0]))
+        assert kind != "partial" or w < STACK_W
+        bits[i, :w] = bloom_build_np(keys, w, k) if w else 0
+        nw[i] = w
+    B = 4096 + 37
+    specials = np.array([0, -1, np.iinfo(np.int64).min, SENTINEL, PAD_PROBE],
+                        np.int64)
+    pool = np.concatenate([allk, allk + 1])
+    probes = np.concatenate([
+        specials, rng.choice(pool, B - 5 - 512),
+        rng.integers(np.iinfo(np.int64).min, SENTINEL, 512, np.int64)])
+    probes[5: 5 + 32] = allk[rng.choice(allk.shape[0], 32)]
+    return {"bits": bits.view(np.int64), "nw": nw, "probes": probes}
+
+
 @functools.lru_cache(maxsize=None)
 def _group_lib(name, G):
     """``name``.cu built with G lanes a probe, in a library of its own."""
     macro = {"plr_lookup": "PLR_LOOKUP_GROUP",
-             "sstable_search": "SSTABLE_SEARCH_GROUP"}[name]
+             "sstable_search": "SSTABLE_SEARCH_GROUP",
+             "bloom_probe_stack": "BLOOM_PROBE_STACK_GROUP"}[name]
     return build.load_variant([build.CSRC / f"{name}.cu"],
                               (f"-D{macro}={G}",))
 
 
 def _on_card(table, B):
-    """The table's tensors on the card, rows and probes cut to B lanes."""
+    """The table's tensors on the card, rows (where it has them) and
+    probes cut to B lanes."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
     t = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
          for k, v in table.items() if k != "R"}
-    t["rows"] = t["rows"][:B].clone()
-    t["probes"] = t["probes"][:B].clone()
+    for k in ("rows", "probes"):
+        if k in t:
+            t[k] = t[k][:B].clone()
     return t
 
 
@@ -378,21 +428,32 @@ def test_sstable_search_cuda_matches_plain(case, B, G):
 
 
 @pytest.mark.gpu
-def test_bloom_probe_stack_cuda_matches_plain():
-    if not torch.cuda.is_available():
-        pytest.skip("no CUDA device")
-    t, _, p, _ = _level("cuda")
-    nw = t["nw"].clone()
-    nw[3] = 0                            # the empty slot: no filter
-    for B in (4096 + 64, 4096 + 37, 1):
-        before = ops.launches["bloom_probe_stack"]
-        got = ops.bloom_probe_stack(t["bits"], nw, p[:B], K)
-        want = ref.bloom_probe_stack_ref(t["bits"], nw, p[:B], K)
-        torch.cuda.synchronize()
-        assert ops.launches["bloom_probe_stack"] == before + 1
-        assert got.shape == (4, B) and got.dtype == torch.bool
-        assert torch.equal(got.cpu(), want.cpu())
-        assert bool(got[3].all())
+@pytest.mark.parametrize("G", [None, *STACK_GROUPS],
+                         ids=["wrapper", *(f"G{g}" for g in STACK_GROUPS)])
+@pytest.mark.parametrize("B", [1, 63, 4096 + 37])
+@pytest.mark.parametrize("L", list(STACK_LAYOUTS))
+@pytest.mark.parametrize("k", [1, 7, 8, 12])
+def test_bloom_probe_stack_cuda_matches_plain(k, L, B, G):
+    t = _on_card(stack_edge_table(L, k), B)
+    bits, nw, p = t["bits"], t["nw"], t["probes"]
+
+    def raw(lib, stream):
+        maybe = torch.empty((L, B), dtype=torch.bool, device="cuda")
+        err = lib.bloom_probe_stack(bits.data_ptr(), nw.data_ptr(),
+                                    p.data_ptr(), maybe.data_ptr(), L, B,
+                                    bits.shape[1], k, stream)
+        return maybe, err
+
+    got = _through("bloom_probe_stack", G,
+                   lambda: ops.bloom_probe_stack(bits, nw, p, k), raw)
+    want = ref.bloom_probe_stack_ref(bits, nw, p, k)
+    assert got.device.type == "cuda" and got.dtype == torch.bool
+    assert got.shape == (L, B)
+    assert torch.equal(got.cpu(), want.cpu())
+    assert bool(got[nw == 0].all())
+    if B > 64:                       # the filters answer both ways
+        filtered = want[nw > 0]
+        assert bool(filtered.any()) and not bool(filtered.all())
 
 
 @pytest.mark.gpu
