@@ -29,14 +29,32 @@
    Counts are zeroed just before phase D and read just after phase E;
    ``bloom_probe_stack``, ``plr_lookup`` and ``bounded_search`` must have
    launched.
+   After the kernel checks below have read that store:
+     F  the served GET, ``repro_torch.server`` over the same store:
+        64 async closed-loop clients (two requests outstanding each, 32
+        keys a request, 80% of them from a hot tenth of the keys, a
+        quarter of the rest absent), 36 rounds of which the first 4 are
+        untimed, in five arms, each a fresh server: ``BourbonServer``;
+        ``PipelinedServer``; the same with an I/O pool of 2 workers; that
+        with the obs plane on; that with 5% of the requests PUTs of
+        present keys.  Arms 1-4 run five times each, in turns, for the
+        spread of their rates; arm 5 runs once, last.  Every answer is
+        checked, arms 1-4 must answer byte for byte alike, the pipelined
+        arms must overlap batches with no epoch violation, the obs arms'
+        counters must reconcile with the served totals and their trace
+        hold device_compute and value_fetch spans.  Counts are zeroed
+        just before F and read just after; the same three kernels must
+        have launched.  Then those three are held against their plain
+        versions on probes F dispatched, at the batch sizes it sent.
 4. Holds each kernel against its plain PyTorch version on the same CUDA
    tensors at the live state's shapes (4096 probes; the stack probe at
    both of its live shapes; ``plr_lookup`` also at phase D's stacked shard
    tables and phase E's one-row level model; ``bounded_search`` also at
-   δ = 40 and ``bloom_probe`` at k = 12), times both with CUDA events and
-   torch.profiler, and computes the kernel's lower bound from the bytes its
-   probes must gather and the per-launch floor (the device time of one
-   trivial PyTorch kernel over 4096 elements).
+   δ = 40 and ``bloom_probe`` at k = 12; the three kernels of phase F also
+   at the batch sizes F dispatched, on its probes), times both with CUDA
+   events and torch.profiler, and computes the kernel's lower bound from
+   the bytes its probes must gather and the per-launch floor (the device
+   time of one trivial PyTorch kernel over 4096 elements).
 5. With ``--first-version DIR`` (a directory holding earlier sources of
    any of the five kernels, ``<name>.cu``): builds them into a library of
    their own and times each against its current build in turns (first,
@@ -121,6 +139,13 @@ class Truth:
             out = np.concatenate([out, c[~self._isin(self.keys, c)]])
         return out[:n]
 
+    def overwrite(self, keys, values) -> None:
+        """Record PUTs of present keys, the last value of a key winning."""
+        ks = np.concatenate([self.ow_keys, keys])
+        vs = np.concatenate([self.ow_vals, values])
+        last = ks.shape[0] - 1 - np.unique(ks[::-1], return_index=True)[1]
+        self.ow_keys, self.ow_vals = ks[last], vs[last]
+
     def check(self, tag: str, probes, found, values) -> None:
         live = self._isin(self.keys, probes) & ~self._isin(self.dead, probes)
         if not np.array_equal(found, live):
@@ -196,7 +221,6 @@ def profile_gets(get, batches: list) -> dict:
     """Device time of a few GET batches under torch.profiler: total kernel
     time against the wall clock, and the kernels that took the most."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -207,6 +231,15 @@ def profile_gets(get, batches: list) -> dict:
             get(probes)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return {"batches": len(batches), **device_summary(prof, wall)}
+
+
+def device_summary(prof, wall: float) -> dict:
+    """A finished torch.profiler session's device time against the wall
+    clock: busy seconds, the idle share, and the kernels that took the
+    most."""
+    from torch.autograd import DeviceType
+
     dev = []
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
@@ -215,7 +248,7 @@ def profile_gets(get, batches: list) -> dict:
             dev.append((us, e.count, e.key))
     dev.sort(reverse=True)
     busy = sum(us for us, _, _ in dev) / 1e6
-    return {"batches": len(batches), "wall_s": wall, "device_busy_s": busy,
+    return {"wall_s": wall, "device_busy_s": busy,
             "device_idle_share": (1 - busy / wall) if busy else None,
             "top_device": [{"name": k[:60], "calls": c, "us": us}
                            for us, c, k in dev[:8]]}
@@ -409,8 +442,9 @@ def _level_lookup_pair(sh, probes: np.ndarray):
 def drive_sharded(device: str, n_keys: int, seed: int, card: str,
                   n_batches: int = 32):
     """Phases D and E.  Returns the reopened store, the kernel launch
-    counts of D and E, and the shard engine's FilterState (for the stack
-    probe's check at its second live shape)."""
+    counts of D and E, the shard engine's FilterState (for the stack
+    probe's check at its second live shape), the temporary directory to
+    remove, and the store's Truth (for phase F)."""
     import torch
     from repro_torch.core import make_dataset
     from repro_torch.distributed import ShardedConfig, ShardedStore
@@ -528,10 +562,435 @@ def drive_sharded(device: str, n_keys: int, seed: int, card: str,
             "launches": e_launch, "filter_state": list(fstate.bits.shape),
             "direct_lookup_equal": True, "card": card}))
         launches = dict(ops.launches)       # read just after phase E
-        return st, launches, fstate, d
+        return st, launches, fstate, d, truth
     except BaseException:
         shutil.rmtree(d, ignore_errors=True)
         raise
+
+
+# ----------------------------------------------------------------------------
+# the served GET (phase F)
+# ----------------------------------------------------------------------------
+
+F_CLIENTS = 64            # async closed-loop clients (bench_serve part A2)
+F_DEPTH = 2               # requests outstanding per client
+F_KEYS_PER_REQ = 32
+F_ROUNDS = 36
+F_WARM = 4                # untimed leading rounds per client
+F_BUDGET_US = 2048.0      # coordinator budget a tick (bench_serve)
+F_PUT_SHARE = 0.05        # arm 5: requests that overwrite present keys
+F_PROFILE_TICKS = 8
+F_REPEATS = 5             # fresh servers of each of arms 1-4, in turns
+F_CHECK_SETS = 8          # dispatched probe sets kept per batch size
+
+
+def served_streams(truth: Truth, seed: int, rounds: int = F_ROUNDS,
+                   put_share: float = 0.0) -> list:
+    """Per-client request streams drawn as bench_serve's _request_streams
+    draws them (80% of a request's keys from a hot tenth of the keys, the
+    rest uniform), with a quarter of the uniform keys replaced by absent
+    keys so that the filter plane prunes.  With ``put_share``, that share
+    of the requests are ("put", keys, values): distinct present keys and
+    random values."""
+    rng = np.random.default_rng(seed)
+    keys = rng.permutation(truth.keys)
+    kpr = F_KEYS_PER_REQ
+    hot = keys[: max(keys.shape[0] // 10, kpr)]
+    streams = []
+    for _ in range(F_CLIENTS):
+        reqs = []
+        for _ in range(rounds):
+            if put_share and rng.random() < put_share:
+                ks = np.unique(rng.choice(keys, kpr))
+                reqs.append(("put", ks, rng.integers(
+                    0, 256, (ks.shape[0], truth.value_size), np.uint8)))
+                continue
+            n_hot = int((rng.random(kpr) < 0.8).sum())
+            uni = rng.choice(keys, kpr - n_hot)
+            uni[: uni.shape[0] // 4] = truth.absent(rng, uni.shape[0] // 4)
+            reqs.append(np.concatenate([rng.choice(hot, n_hot), uni]))
+        streams.append(reqs)
+    return streams
+
+
+class DispatchCount:
+    """Counts the store's ``dispatch_get`` calls while installed (each is
+    one dispatched batch, whichever server sends it)."""
+
+    def __init__(self, st):
+        self.st, self.n = st, 0
+
+    def __enter__(self):
+        orig = self.st.dispatch_get
+
+        def counted(*args, **kw):
+            self.n += 1
+            return orig(*args, **kw)
+
+        self.st.dispatch_get = counted
+        return self
+
+    def __exit__(self, *exc):
+        del self.st.dispatch_get
+
+
+class DispatchCapture:
+    """Keeps, while installed, the probes of up to F_CHECK_SETS batches of
+    each padded size that the store's ``_dist_dispatch`` launches (keyed
+    by that size, the batch the kernels see)."""
+
+    def __init__(self, st):
+        self.st, self.sets = st, {}
+
+    def __enter__(self):
+        from repro_torch.core.distributed import next_pow2
+        orig = self.st._dist_dispatch
+
+        def captured(probes):
+            kept = self.sets.setdefault(next_pow2(max(probes.shape[0], 64)),
+                                        [])
+            if len(kept) < F_CHECK_SETS:
+                kept.append(np.array(probes, np.int64))
+            return orig(probes)
+
+        self.st._dist_dispatch = captured
+        return self
+
+    def __exit__(self, *exc):
+        del self.st._dist_dispatch
+
+
+def serve_closed_loop(srv, truth: Truth, streams: list, tag: str,
+                      profile_ticks: int = 0) -> tuple:
+    """bench_serve's _closed_loop_async: each client keeps up to F_DEPTH
+    requests outstanding and resubmits after backpressure.  A GET's answer
+    is checked against the truth as it stood when the GET was submitted
+    (a PUT updates the truth at submission, the order the server applies
+    it in); the checks run after the loop, so that their host time is not
+    counted as the server's.  The first F_WARM rounds of each client are
+    untimed.  With ``profile_ticks``, torch.profiler records that many
+    ticks from the end of the warm rounds.  Returns the answers by
+    (client, round) and the timing record, with the share of the timed
+    wall clock spent inside ``tick()``."""
+    import torch
+    from repro_torch.server import ServerRequest
+    rounds = len(streams[0])
+    nxt = [0] * F_CLIENTS
+    pending = [[] for _ in range(F_CLIENTS)]
+    answers = [[None] * rounds for _ in range(F_CLIENTS)]
+    lat_ticks, lat_ms, done = [], [], []
+    total, warm_total = F_CLIENTS * rounds, F_CLIENTS * F_WARM
+    served = rid = tick0 = keys0 = tick_s = 0
+    t_start = prof = prof_out = None
+    while served < total:
+        if served >= warm_total and t_start is None:
+            t_start, tick0 = time.perf_counter(), srv.ticks
+            if profile_ticks:
+                from torch.profiler import ProfilerActivity, profile
+                torch.cuda.synchronize()
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])
+                prof.start()
+        for c in range(F_CLIENTS):
+            while len(pending[c]) < F_DEPTH and nxt[c] < rounds:
+                item = streams[c][nxt[c]]
+                op, ks, vals = item if isinstance(item, tuple) \
+                    else ("get", item, None)
+                r = ServerRequest(rid, op, ks, vals)
+                if not srv.submit(r):      # backpressure: retry next tick
+                    break
+                r.slot = (c, nxt[c])
+                r.t0 = time.perf_counter()
+                if op == "put":
+                    truth.overwrite(ks, vals)
+                # overwrite() rebinds: this is the truth as of now
+                r.version = (truth.ow_keys, truth.ow_vals)
+                rid += 1
+                pending[c].append(r)
+                nxt[c] += 1
+        t0 = time.perf_counter()
+        srv.tick()
+        now = time.perf_counter()
+        if t_start is not None:
+            tick_s += now - t0
+        for c in range(F_CLIENTS):
+            for r in [r for r in pending[c] if r.done]:
+                pending[c].remove(r)
+                done.append(r)
+                if t_start is not None:
+                    lat_ticks.append(r.latency_ticks)
+                    lat_ms.append(1e3 * (now - r.t0))
+                    keys0 += r.keys.shape[0]
+                served += 1
+        if prof is not None and (srv.ticks - tick0 >= profile_ticks
+                                 or served >= total):
+            torch.cuda.synchronize()
+            prof.stop()
+            prof_out = {"ticks": srv.ticks - tick0,
+                        **device_summary(prof,
+                                         time.perf_counter() - t_start)}
+            prof = None
+    dt = time.perf_counter() - t_start
+    now = (truth.ow_keys, truth.ow_vals)
+    for r in done:
+        if r.op == "get":
+            truth.ow_keys, truth.ow_vals = r.version
+            truth.check(f"{tag} request {r.rid}", r.keys, r.found, r.result)
+            answers[r.slot[0]][r.slot[1]] = (r.found.tobytes()
+                                             + r.result.tobytes())
+    truth.ow_keys, truth.ow_vals = now
+    timed = len(lat_ticks)
+    return answers, {"requests": timed, "seconds": dt,
+                     "tick_share": tick_s / dt,
+                     "requests_per_s": timed / dt, "keys_per_s": keys0 / dt,
+                     "p50_ticks": float(np.percentile(lat_ticks, 50)),
+                     "p99_ticks": float(np.percentile(lat_ticks, 99)),
+                     "p50_ms": float(np.percentile(lat_ms, 50)),
+                     "p99_ms": float(np.percentile(lat_ms, 99)),
+                     "ticks": srv.ticks, "profile": prof_out}
+
+
+def _reconcile_obs(tag: str, srv, st, n_gets0: int) -> dict:
+    """Phase F's obs checks on a served arm: the completed counter, the
+    cache counters against the served totals, the fleet's GET counter
+    against the store's, and the spans of the trace export."""
+    from repro_torch.obs import READ_STAGES
+    snap = srv.obs.snapshot()
+    s = srv.stats()
+
+    def one(name):
+        return snap[name]["samples"][0]["value"]
+
+    if one("server_completed_total") != s["completed"]:
+        fail(f"{tag}: server_completed_total {one('server_completed_total')}"
+             f" != {s['completed']} requests completed")
+    cs = s["cache"]
+    if not (s["served_from_cache"] == cs["hits"] == one("cache_hits_total")
+            == one("server_served_from_cache_total")
+            and one("server_store_probe_keys_total") == s["store_probe_keys"]):
+        fail(f"{tag}: the cache counters do not reconcile with the served "
+             f"totals ({cs}, {s['served_from_cache']}, "
+             f"{s['store_probe_keys']})")
+    if one("fleet_gets_total") != st.n_gets:
+        fail(f"{tag}: fleet_gets_total {one('fleet_gets_total')} != the "
+             f"store's n_gets {st.n_gets}")
+    if st.n_gets - n_gets0 != one("server_store_probe_keys_total"):
+        fail(f"{tag}: n_gets rose by {st.n_gets - n_gets0}, not by the "
+             f"{one('server_store_probe_keys_total')} keys the server "
+             "probed")
+    names = {e["name"] for e in srv.obs.trace_events()["traceEvents"]
+             if e["ph"] == "X"}
+    if not {"device_compute", "value_fetch"} <= names:
+        fail(f"{tag}: the trace export lacks device_compute or value_fetch "
+             f"spans ({sorted(names)})")
+    stages = {dict(x["labels"])["stage"]: x["value"]
+              for x in snap["server_stage_us"]["samples"]}
+    return {"stage_mean_us": {k: (stages[k]["sum"] / stages[k]["count"]
+                                  if stages.get(k, {}).get("count") else None)
+                              for k in READ_STAGES},
+            "stage_count": {k: stages.get(k, {}).get("count", 0)
+                            for k in READ_STAGES},
+            "traced_requests": srv.obs.ctrace.traced_requests,
+            "span_names": sorted(names)}
+
+
+def _serve_arm(st, truth: Truth, i: int, cls, cfg, streams: list, seed: int,
+               profile: bool) -> tuple:
+    """One run of phase F's arm ``i``: a fresh ``cls`` server with ``cfg``
+    on ``st`` serves ``streams``; with ``profile`` (arm 3's first run, on
+    the card) a second stream's first ticks after the warm rounds run under
+    torch.profiler for the device's idle share.  Returns (the arm's record,
+    its answers)."""
+    from repro_torch.kernels import ops
+    from repro_torch.server import PipelinedServer
+    tag = f"F arm {i}"
+    launched = dict(ops.launches)
+    vf0 = dict(st.stats()["value_fetch"])
+    n_gets0 = st.n_gets
+    srv = cls(st, cfg)
+    try:
+        with DispatchCount(st) as dc:
+            ans, rec = serve_closed_loop(srv, truth, streams, tag)
+        s = srv.stats()
+        launches = {k: v - launched[k] for k, v in ops.launches.items()}
+        vf1 = st.stats()["value_fetch"]
+        if profile and st.device.type == "cuda":
+            # a tick answers about two rounds of every client
+            prof_streams = served_streams(
+                truth, seed + 22, F_WARM + 2 * F_PROFILE_TICKS + 4)
+            rec["profile"] = serve_closed_loop(
+                srv, truth, prof_streams, f"{tag} profile",
+                profile_ticks=F_PROFILE_TICKS)[1]["profile"]
+    finally:
+        srv.shutdown()
+    rec.update(arm=i, io_workers=cfg.io_workers, obs=cfg.obs.enabled,
+               batches=s["batches"], dispatches=dc.n,
+               cache_hit_rate=s["cache"]["hit_rate"], launches=launches,
+               launches_per_dispatch={k: v / max(dc.n, 1)
+                                      for k, v in launches.items()})
+    if cls is PipelinedServer:
+        p = s["pipeline"]
+        rec.update(max_depth_seen=p["max_depth_seen"],
+                   epoch_violations=p["epoch_violations"],
+                   write_barriers=p["write_barriers"])
+        if p["epoch_violations"] != 0:
+            fail(f"{tag}: {p['epoch_violations']} epoch violations")
+        if p["max_depth_seen"] <= 1:
+            fail(f"{tag}: the pipeline never held two batches")
+    hid = vf1["hidden_us"] - vf0["hidden_us"]
+    exp = vf1["exposed_us"] - vf0["exposed_us"]
+    rec["value_fetch_overlap"] = hid / (hid + exp) if hid + exp else 0.0
+    if cfg.obs.enabled:
+        rec.update(_reconcile_obs(tag, srv, st, n_gets0))
+    if i == 5 and s["pipeline"]["write_barriers"] == 0:
+        fail(f"{tag}: no write reached the store")
+    return rec, ans
+
+
+def drive_served(st, truth: Truth, seed: int, card: str) -> dict:
+    """Phase F: the served GET on the reopened sharded store of phase D, in
+    five arms, each a fresh server on the same store (bench_serve part A2's
+    geometry): 1 ``BourbonServer``; 2 ``PipelinedServer``; 3 the same with
+    an I/O pool of 2 workers; 4 as 3 with the obs plane on (stage tracer
+    every 4th tick, one request in 64 traced); 5 as 4 with 5% of the
+    requests PUTs of present keys.  Arms 1-4 run F_REPEATS times each, in
+    turns, serve the same streams and must answer byte for byte alike;
+    every answer is held to the truth.  An arm's rates and latencies are
+    the medians of its runs, and the ratios of adjacent arms are taken run
+    by run.  Launch counts are zeroed just before the first run and read
+    just after arm 5; the probes of the dispatched batches are captured
+    for :func:`served_shape_checks`.  Returns the F record (also printed as
+    the phase line)."""
+    from repro_torch.kernels import ops
+    from repro_torch.obs import ObsConfig
+    from repro_torch.server import (BourbonServer, CoordinatorConfig,
+                                    PipelineConfig, PipelinedServer,
+                                    ServerConfig)
+
+    t_phase = time.perf_counter()
+    atomic = max(sh.cfg.costs.t_gc(sh.cfg.vlog_seg_slots,
+                                   sh.cfg.vlog_seg_slots) for sh in st.shards)
+    # the coordinator refuses a budget below one segment's collection
+    budget = max(F_BUDGET_US, atomic)
+    base = dict(max_batch_keys=1024, max_wait_ticks=0,
+                queue_capacity=2 * F_DEPTH * F_CLIENTS,
+                max_batches_per_tick=8, coordinate_maintenance=True,
+                coordinator=CoordinatorConfig(budget_us_per_tick=budget))
+    pipe = dict(base, max_inflight=8, carry=1)
+    obs = ObsConfig(sample_every=4, trace_sample_every=64)
+    off = ObsConfig(enabled=False)
+    arms = [("BourbonServer", BourbonServer, ServerConfig(**base, obs=off)),
+            ("PipelinedServer", PipelinedServer,
+             PipelineConfig(**pipe, io_workers=0, obs=off)),
+            ("PipelinedServer+io2", PipelinedServer,
+             PipelineConfig(**pipe, io_workers=2, obs=off)),
+            ("PipelinedServer+io2+obs", PipelinedServer,
+             PipelineConfig(**pipe, io_workers=2, obs=obs)),
+            ("PipelinedServer+io2+obs+puts", PipelinedServer,
+             PipelineConfig(**pipe, io_workers=2, obs=obs))]
+    streams = served_streams(truth, seed + 20)
+    put_streams = served_streams(truth, seed + 21, put_share=F_PUT_SHARE)
+    n_puts = sum(isinstance(x, tuple) for s in put_streams for x in s)
+    runs = {i: [] for i in range(1, 6)}
+    capture = DispatchCapture(st)
+    ops.reset_launches()                 # the served path starts here
+    with capture:
+        for i in [a for _ in range(F_REPEATS) for a in (1, 2, 3, 4)] + [5]:
+            _, cls, cfg = arms[i - 1]
+            runs[i].append(_serve_arm(st, truth, i, cls, cfg,
+                                      put_streams if i == 5 else streams,
+                                      seed, profile=(i == 3 and not runs[i])))
+    launches = dict(ops.launches)        # read just after arm 5
+    first = runs[1][0][1]
+    for i in (1, 2, 3, 4):
+        for r, (_, ans) in enumerate(runs[i]):
+            if ans != first:
+                bad = sum(a != b for ra, rb in zip(first, ans)
+                          for a, b in zip(ra, rb))
+                fail(f"F: arm {i} (run {r + 1}) answered {bad} requests "
+                     "differently from arm 1's first run")
+    out = []
+    for i in range(1, 6):
+        recs = [r for r, _ in runs[i]]
+        rec = dict(recs[0], server=arms[i - 1][0], repeats=len(recs))
+        for key in ("requests_per_s", "keys_per_s", "p50_ms", "p99_ms",
+                    "p50_ticks", "p99_ticks", "tick_share",
+                    "value_fetch_overlap"):
+            rec[key] = float(np.median([r[key] for r in recs]))
+        rec["requests_per_s_runs"] = [r["requests_per_s"] for r in recs]
+        out.append(rec)
+
+    def ratio(a, b):
+        """Arm a's rate over arm b's, run by run (each pair adjacent in
+        time), with the median and the extremes."""
+        xs = [ra[0]["requests_per_s"] / rb[0]["requests_per_s"]
+              for ra, rb in zip(runs[a], runs[b])]
+        return {"median": float(np.median(xs)), "min": min(xs),
+                "max": max(xs), "runs": xs}
+
+    ratios = {"arm2/arm1": ratio(2, 1), "arm3/arm2": ratio(3, 2),
+              "arm4/arm3": ratio(4, 3)}
+    rec = {"phase": "F", "clients": F_CLIENTS, "depth": F_DEPTH,
+           "keys_per_request": F_KEYS_PER_REQ, "rounds": F_ROUNDS,
+           "warm_rounds": F_WARM, "repeats_arms_1_4": F_REPEATS,
+           "coordinator_budget_us": budget, "puts_arm5": n_puts,
+           "arms": out, "ratios": ratios,
+           "obs_overhead": ratios["arm4/arm3"]["median"],
+           "identical_arms_1_4": True, "launches": launches,
+           "served_shape_checks": served_shape_checks(st, capture.sets),
+           "seconds": time.perf_counter() - t_phase, "card": card}
+    print(json.dumps(rec))
+    return rec
+
+
+def served_shape_checks(st, sets: dict) -> dict:
+    """The three kernels of the served path against their plain versions on
+    probes phase F dispatched (``DispatchCapture.sets``), padded and routed
+    as ``_dist_dispatch`` pads and routes them, on the sharded state as it
+    stands after F: the batch sizes the server sends, which the checks at
+    CHECK_B do not cover.  ``bounded_search`` gets the plain positions, so
+    that its check stands alone.  Per kernel: the batch sizes, the sets,
+    the outputs that differ and the largest difference."""
+    import torch
+    from repro_torch.core.store import _PAD_PROBE
+    from repro_torch.kernels import ops, ref
+    state = st.device_state()
+    k = st.shards[0].cfg.lsm.bloom_k
+    dev = state["keys"].device
+    models = (state["starts"], state["slopes"], state["icepts"],
+              state["nseg"], state["n"])
+    out = {name: {"B": sorted(sets), "sets": 0, "mismatches": 0,
+                  "max_abs_err": 0.0}
+           for name in ("bloom_probe_stack", "plr_lookup", "bounded_search")}
+    for B, kept in sorted(sets.items()):
+        for probes in kept:
+            buf = np.full(B, _PAD_PROBE, np.int64)
+            buf[: probes.shape[0]] = probes
+            p = torch.from_numpy(buf).to(dev)
+            rows = torch.from_numpy(st.shard_of(buf)).to(dev)
+            pos = ref.plr_lookup_rows_ref(*models, rows, p)
+            pairs = {
+                "bloom_probe_stack": (
+                    ops.bloom_probe_stack(state["fbits"], state["fnw"], p, k),
+                    ref.bloom_probe_stack_ref(state["fbits"], state["fnw"],
+                                              p, k)),
+                "plr_lookup": (ops.plr_lookup(*models, rows, p), pos),
+                "bounded_search": (
+                    ops.bounded_search(state["keys"], state["n"], rows, pos,
+                                       p, st.delta),
+                    ref.bounded_search_rows_ref(state["keys"], state["n"],
+                                                rows, pos, p, st.delta))}
+            for name, (got, want) in pairs.items():
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                rec = out[name]
+                rec["sets"] += 1
+                for g, w in zip(got, want):
+                    d = (g.long() - w.long()).abs()
+                    rec["mismatches"] += int((d != 0).sum())
+                    rec["max_abs_err"] = max(rec["max_abs_err"],
+                                             float(d.max()))
+    return out
 
 
 # ----------------------------------------------------------------------------
@@ -1196,7 +1655,7 @@ def main() -> int:
             fail(f"{k['name']} never launched on the main path")
     del store, snapshot
     gc.collect()
-    st, launches_de, fstate, shard_dir = drive_sharded(
+    st, launches_de, fstate, shard_dir, truth = drive_sharded(
         "cuda", args.shard_keys, args.seed, card)
     try:
         for name in ("bloom_probe_stack", "plr_lookup", "bounded_search"):
@@ -1212,13 +1671,23 @@ def main() -> int:
         plr["level_model_shape"] = shapes["level_model"]
         checks.append(stack_checks(st, fstate, launches, launches_de,
                                    variants))
+        served = drive_served(st, truth, args.seed, card)
+        launches_f = served["launches"]
+        for name in ("bloom_probe_stack", "plr_lookup", "bounded_search"):
+            if launches_f[name] <= 0:
+                fail(f"{name} never launched on the served path (F)")
+        for k in checks:
+            k["launches_f"] = launches_f[k["name"]]
+            k["launches"] += launches_f[k["name"]]
+            if k["name"] in served["served_shape_checks"]:
+                k["served_shape"] = served["served_shape_checks"][k["name"]]
         st.close()
     finally:
         shutil.rmtree(shard_dir, ignore_errors=True)
     for k in checks:
         other = {tag: k[tag]["mismatches"]
                  for tag in ("wide_check", "shard_shape", "level_model_shape",
-                             "engine_shape") if tag in k}
+                             "engine_shape", "served_shape") if tag in k}
         if k["mismatches"] != 0 or any(other.values()):
             fail(f"{k['name']} disagrees with its plain version on "
                  f"{k['mismatches']} outputs (other checks: {other})")

@@ -47,7 +47,9 @@ __all__ = ["EngineConfig", "DeviceLevel", "DeviceState", "FilterState",
            "resolve_device"]
 
 KEY_SENTINEL = np.iinfo(np.int64).max
-MODES = ("baseline", "model", "model_pure", "level")
+# "mixed" takes the per-file arms of "model" (a learned file its model,
+# the rest the baseline search), as in the reference
+MODES = ("baseline", "model", "mixed", "model_pure", "level")
 
 
 def _next_pow2(x: int) -> int:
@@ -120,7 +122,13 @@ class LookupResult:
 
     ``found`` / ``vptr`` / ``served_level`` are host arrays.  The per-level
     CBA counter vectors stay on the device until first touched, then are
-    copied once."""
+    copied once.
+
+    ``n_materializations`` is a class-wide count of those device-to-host
+    counter copies: the observability tests assert that attaching the
+    metrics plane adds none of them per batch."""
+
+    n_materializations = 0
 
     def __init__(self, found, vptr, served_level, pos_counts, neg_counts,
                  values=None):
@@ -136,12 +144,14 @@ class LookupResult:
     @property
     def pos_counts(self) -> list:
         if self._pos_np is None:
+            LookupResult.n_materializations += 1
             self._pos_np = [p.cpu().numpy() for p in self._pos_dev]
         return self._pos_np
 
     @property
     def neg_counts(self) -> list:
         if self._neg_np is None:
+            LookupResult.n_materializations += 1
             self._neg_np = [n.cpu().numpy() for n in self._neg_dev]
         return self._neg_np
 
@@ -203,10 +213,15 @@ class LookupEngine:
         # per-level (model_probes, baseline_probes) and (pruned,
         # false-positive) counts, accumulated on the device as (N_LEVELS, 2)
         # int64 adds per batch and copied to the host only by *_np()
+        # (BourbonStore.attach_obs turns it on); the *_materializations
+        # counters count those copies, so tests can assert that the hot
+        # path never pays one
         self.record_probe_split = False
         self.probe_split_acc = None
+        self.probe_acc_materializations = 0
         self._filter_cache: tuple | None = None
         self.filter_stats_acc = None
+        self.filter_acc_materializations = 0
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -609,6 +624,7 @@ class LookupEngine:
         device-to-host copy."""
         if self.probe_split_acc is None:
             return np.zeros((N_LEVELS, 2), np.int64)
+        self.probe_acc_materializations += 1
         return self.probe_split_acc.cpu().numpy()
 
     def filter_stats_np(self) -> np.ndarray:
@@ -616,4 +632,5 @@ class LookupEngine:
         with the same one-copy discipline as probe_split_np."""
         if self.filter_stats_acc is None:
             return np.zeros((N_LEVELS, 2), np.int64)
+        self.filter_acc_materializations += 1
         return self.filter_stats_acc.cpu().numpy()

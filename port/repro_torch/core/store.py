@@ -17,8 +17,9 @@ lifetimes / Fig-13-style accounting exactly as in ``repro.core.store``.
 
 A store opened on a directory (``BourbonStore.open``) is durable through
 ``repro_torch.storage``, which writes the same bytes as ``repro.storage``:
-a directory written by either package opens in the other.  The obs plane
-is not ported yet (``attach_obs`` raises).
+a directory written by either package opens in the other.  ``attach_obs``
+joins the store to an observability plane (``repro_torch.obs``) under the
+reference's metric names.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.obs import NULL_HANDLE
+from repro_torch.obs import NULL_CTRACE, NULL_HANDLE, publish_stats
 
 from .cba import (CBAConfig, LearningExecutor, MaintenanceConfig,
                   MaintenanceScheduler)
@@ -170,8 +171,11 @@ class BourbonStore:
         # with a per-tick budget (the serving plane's fleet coordinator)
         self.maintenance_deferred = False
         self.last_maintenance_us = 0.0   # virtual cost of the last round
-        # observability: null objects so the hot paths never branch on
-        # "obs on?" (the obs plane itself is a later slice)
+        # observability (repro_torch.obs): attach_obs wires these; the
+        # defaults are null objects so the hot paths never branch on "obs on?"
+        self._obs = None
+        self._obs_labels: dict = {}
+        self._obs_events = None
         self._vf = NULL_HANDLE           # value-fetch stage handle
         self._fp = NULL_HANDLE           # filter-probe stage handle
         # host I/O plane (repro_torch.io): attach_io wires a worker pool so
@@ -566,6 +570,13 @@ class BourbonStore:
                     for k in ("segments_removed", "bytes_reclaimed",
                               "entries_moved"):
                         self.auto_gc_stats[k] += res[k]
+                    if self._obs_events is not None:
+                        self._obs_events.log(
+                            "gc", at_us=self.clock.now,
+                            candidates=len(segs),
+                            cost_us=self.cba.last_plan_cost_us,
+                            benefit_us=self.cba.last_plan_benefit_us,
+                            **res, **self._obs_labels)
             if (not self._storage.in_recovery and self.cba.should_checkpoint(
                     self._storage.manifest_tail_bytes())):
                 # the fold rewrites the whole live state, so its cost is
@@ -588,6 +599,11 @@ class BourbonStore:
                     self.cba.checkpoints += 1
                     self.cba.checkpoint_us += cost
                     self.clock.advance(cost)
+                    if self._obs_events is not None:
+                        self._obs_events.log(
+                            "checkpoint", at_us=self.clock.now,
+                            cost_us=cost, folded_bytes=folded,
+                            **self._obs_labels)
         finally:
             self._in_maintenance = False
         self.last_maintenance_us = self.clock.now - t0
@@ -1112,9 +1128,101 @@ class BourbonStore:
 
     # -------------------------------------------------------------------- obs
     def attach_obs(self, obs, labels: dict | None = None) -> None:
-        raise NotImplementedError("the obs plane (metrics registry, stage "
-                                  "and causal tracers) is ported in a later "
-                                  "slice")
+        """Join an :class:`repro_torch.obs.Obs` plane: register a snapshot-time
+        collector (keyed on the labels, so a store reopening with the
+        same labels replaces its stale predecessor instead of
+        double-reporting), route maintenance/learning decisions into the
+        event log, enable the engine's in-graph probe-split accumulator,
+        and pre-bind the value-fetch stage handle.  Nothing here touches
+        the read hot path beyond one asynchronous (N_LEVELS, 2)
+        device add per batch."""
+        self._obs = obs
+        self._obs_labels = dict(labels or {})
+        self._obs_events = obs.events
+        self.executor.events = obs.events
+        self.engine.record_probe_split = True
+        self._vf = obs.tracer.stage("value_fetch")
+        self._fp = obs.tracer.stage("filter_probe")
+        if self._storage is not None:
+            # traced writes span into the WAL: append -> commit-group
+            # fsync becomes a causal fan-in in the span graph
+            self._storage.set_tracer(obs.ctrace)
+        key = ("store", tuple(sorted(self._obs_labels.items())))
+        obs.registry.register_collector(key, self._collect_obs)
+
+    def detach_obs(self) -> None:
+        """Undo :meth:`attach_obs`: restore the null handles so the hot
+        path records nothing, disable the probe-split accumulator, and
+        drop this store's collector from the registry.  A later
+        attach_obs (same or different plane) starts clean."""
+        if self._obs is not None:
+            self._obs.registry.unregister_collector(
+                ("store", tuple(sorted(self._obs_labels.items()))))
+        self._obs = None
+        self._obs_labels = {}
+        self._obs_events = None
+        self.executor.events = None
+        self.engine.record_probe_split = False
+        self._vf = NULL_HANDLE
+        self._fp = NULL_HANDLE
+        if self._storage is not None:
+            self._storage.set_tracer(NULL_CTRACE)
+
+    def _collect_obs(self, reg) -> None:
+        """Snapshot-time collector: curated monotonic counters (restart-
+        safe across reopen via observe_total), per-level gauges, the
+        lazily-materialized engine probe split, and the full ``stats()``
+        dict flattened so no metric is lost in the migration."""
+        lb = self._obs_labels
+        c = reg.counter
+        c("store_gets_total", **lb).observe_total(self.n_gets)
+        c("store_puts_total", **lb).observe_total(self.n_puts)
+        c("store_files_learned_total", **lb).observe_total(
+            self.executor.files_learned)
+        c("store_lookups_model_path_total", **lb).observe_total(
+            self.lookups_model_path)
+        c("store_lookups_baseline_path_total", **lb).observe_total(
+            self.lookups_baseline_path)
+        c("store_gc_us_total", **lb).observe_total(self.cba.gc_us)
+        c("store_checkpoints_total", **lb).observe_total(self.cba.checkpoints)
+        # per-level model-path vs baseline-path probe attribution: ONE
+        # device->host sync for the whole accumulated history (satellite
+        # of the lazy LookupResult pattern — the hot path never syncs)
+        split = self.engine.probe_split_np()
+        for li in range(N_LEVELS):
+            c("engine_probes_total", level=str(li), path="model",
+              **lb).observe_total(int(split[li, 0]))
+            c("engine_probes_total", level=str(li), path="baseline",
+              **lb).observe_total(int(split[li, 1]))
+        # per-level filter pruning and false-positive attribution, same
+        # lazy one-sync discipline as the probe split
+        fsplit = self.engine.filter_stats_np()
+        for li in range(N_LEVELS):
+            c("engine_filter_pruned_total", level=str(li),
+              **lb).observe_total(int(fsplit[li, 0]))
+            c("engine_filter_fp_total", level=str(li),
+              **lb).observe_total(int(fsplit[li, 1]))
+        c("store_filter_screened_total", **lb).observe_total(
+            self.filter_screened)
+        c("store_filter_host_answered_total", **lb).observe_total(
+            self.filter_host_answered)
+        c("store_filter_builds_total", **lb).observe_total(self.filters_built)
+        if self._storage is not None:
+            ws = self._storage.wal_stats()
+            c("store_wal_appends_total", **lb).observe_total(ws["appends"])
+            c("store_wal_fsyncs_total", **lb).observe_total(ws["fsyncs"])
+            c("store_wal_commits_total", **lb).observe_total(ws["commits"])
+            h = reg.histogram("store_wal_group_batch", **lb)
+            for n in self._storage.drain_wal_batch_sizes():
+                h.observe(n)
+        g = reg.gauge
+        for li, tables in enumerate(self.tree.levels):
+            g("store_level_files", level=str(li), **lb).set(len(tables))
+            g("store_level_records", level=str(li), **lb).set(
+                sum(t.n for t in tables))
+            g("store_level_learned", level=str(li), **lb).set(
+                sum(1 for t in tables if t.model is not None))
+        publish_stats(reg, "store", self.stats(), lb)
 
     # ------------------------------------------------------------------ stats
     def stats(self) -> dict:

@@ -58,7 +58,7 @@ from repro_torch.core.plr import greedy_plr_np
 from repro_torch.core.store import BourbonStore, StoreConfig
 from repro_torch.io import ValueFetch, wait_all
 from repro_torch.kernels import ops
-from repro_torch.obs import NULL_CTRACE, NULL_HANDLE
+from repro_torch.obs import NULL_CTRACE, NULL_HANDLE, publish_stats
 from repro_torch.storage.format import fsync_dir, sst_path
 from repro_torch.storage.manifest import read_manifest
 from repro_torch.storage.sstable_io import load_sstable
@@ -194,8 +194,9 @@ class ShardedStore:
         self._state_epochs = None
         self.state_epoch = 0          # bumps whenever the device state refreshes
         self.n_gets = 0
-        # observability: null objects keep the resolve hot path
-        # branch-free (the obs plane itself is a later slice)
+        # observability (repro_torch.obs) — attach_obs wires these; null
+        # objects keep the resolve hot path branch-free when obs is off
+        self._obs = None
         self._vf = NULL_HANDLE
         self._fp = NULL_HANDLE
         self._ct = NULL_CTRACE
@@ -624,9 +625,53 @@ class ShardedStore:
 
     # ------------------------------------------------------------------- obs
     def attach_obs(self, obs) -> None:
-        raise NotImplementedError("the obs plane (metrics registry, stage "
-                                  "and causal tracers) is ported in a later "
-                                  "slice")
+        """Join the fleet to one observability plane: every shard reports
+        into the shared registry under its own ``shard=<i>`` label (so
+        the per-shard breakdown survives aggregation), the distributed
+        value-fetch is timed under the same ``value_fetch`` stage the
+        single-store path uses, and a fleet-level collector publishes the
+        cross-shard aggregates."""
+        self._obs = obs
+        self._vf = obs.tracer.stage("value_fetch")
+        self._fp = obs.tracer.stage("filter_probe")
+        self._ct = obs.ctrace
+        for i, st in enumerate(self.shards):
+            st.attach_obs(obs, labels={"shard": str(i)})
+        obs.registry.register_collector(("fleet", self.path),
+                                        self._collect_obs)
+
+    def detach_obs(self) -> None:
+        """Undo :meth:`attach_obs` fleet-wide (a fresh server with its
+        own obs plane — or none — can then take over cleanly)."""
+        if self._obs is not None:
+            self._obs.registry.unregister_collector(("fleet", self.path))
+        self._obs = None
+        self._vf = NULL_HANDLE
+        self._fp = NULL_HANDLE
+        self._ct = NULL_CTRACE
+        for st in self.shards:
+            st.detach_obs()
+
+    def _collect_obs(self, reg) -> None:
+        reg.counter("fleet_gets_total").observe_total(self.n_gets)
+        reg.gauge("fleet_state_epoch").set(self.state_epoch)
+        # value-fetch overlap: fraction of total fetch time that ran
+        # concurrently with other work instead of stalling the caller
+        # (0.0 when inline; → 1.0 as the pool fully hides the fetch)
+        c = reg.counter
+        c("fleet_value_fetch_hidden_us_total").observe_total(
+            self._vf_hidden_us)
+        c("fleet_value_fetch_exposed_us_total").observe_total(
+            self._vf_exposed_us)
+        total_vf = self._vf_hidden_us + self._vf_exposed_us
+        reg.gauge("fleet_value_fetch_overlap_ratio").set(
+            self._vf_hidden_us / total_vf if total_vf else 0.0)
+        for i, ep in enumerate(self._shard_epochs()):
+            reg.gauge("fleet_shard_epoch", shard=str(i)).set(ep)
+        # fleet aggregates; the per-shard dicts are already published by
+        # each shard's own labeled collector — don't double-report them
+        publish_stats(reg, "fleet", self.stats(),
+                      skip=("shards", "per_shard"))
 
     # ----------------------------------------------------------------- stats
     def stats(self) -> dict:

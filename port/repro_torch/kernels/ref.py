@@ -85,6 +85,8 @@ def bloom_probe_rows_ref(bits, nw, rows, probes, k_hashes: int):
     the uint64 bits reinterpreted), modulus max(nw[row], 1)*64."""
     r = rows.long()
     m = nw[r].long().clamp(min=1) * 64
+    if m.numel() and int(m.max()) >= 1 << 31:
+        raise ValueError("filter too large for the 32-bit split modulus")
     W = bits.shape[-1]
     h1, h2 = hash2_torch(probes)
     maybe = torch.ones(probes.shape, dtype=torch.bool, device=probes.device)

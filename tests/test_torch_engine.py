@@ -1,5 +1,5 @@
 """The port's LookupEngine (device="cpu") against repro's on the same LSM
-content: modes baseline, model and model_pure, with the filter plane off
+content: modes baseline, model, mixed and model_pure, with the filter plane off
 and with the host-screen mask (``fmaybe_host``).  Batches have the shapes
 the store dispatches — multiples of 64 padded with ``_PAD_PROBE``.  Held
 exactly: found, vptr, served level, per-file pos/neg counts, probe split
@@ -145,15 +145,38 @@ def test_learning_after_stacking_restacks_segment_tables():
     assert res.found[:B_LIVE // 2][live].mean() > 0.9
 
 
-def test_unported_paths_raise():
-    """Mode "level" and the device filter probe are ported; the
-    reference's "mixed" mode (which the store never selects) is not."""
-    (_, pt), keys = _trees("none")
-    pe = peng.LookupEngine(peng.EngineConfig(device="cpu"))
-    state = pe.build_state(pt)
+def test_mixed_mode_matches_reference():
+    """Mode "mixed" (which the store never selects) takes the per-file arms
+    of mode "model" in both packages: held to the reference on half-learned
+    trees, with the filter plane off and with the device filter probe."""
+    (jt, pt), keys = _trees("half")
     probes = _probes(keys)
-    fs = pe.build_filter_state([None] * N_LEVELS)
-    for mode in ("level", "model"):
-        pe.lookup_async(state, probes, mode, fstate=fs).resolve()
-    with pytest.raises(ValueError):
-        pe.lookup_async(state, probes, "mixed")
+    je = jeng.LookupEngine(jeng.EngineConfig())
+    pe = peng.LookupEngine(peng.EngineConfig(device="cpu"))
+    je.record_probe_split = pe.record_probe_split = True
+    for filtered in (False, True):
+        results = []
+        for eng, tree, fmod in ((je, jt, jfilters), (pe, pt, pfilters)):
+            state = eng.build_state(tree)
+            kw = {}
+            if filtered:
+                filters, _, _ = _filter_inputs(tree, fmod, probes)
+                kw = dict(fstate=eng.build_filter_state(filters))
+            results.append(eng.lookup_async(
+                state, probes, "mixed", l0_live=len(tree.levels[0]),
+                **kw).resolve())
+        jr, pr = results
+        np.testing.assert_array_equal(pr.found, jr.found)
+        np.testing.assert_array_equal(pr.vptr, jr.vptr)
+        np.testing.assert_array_equal(pr.served_level, jr.served_level)
+        for li in range(N_LEVELS):
+            np.testing.assert_array_equal(pr.pos_counts[li],
+                                          jr.pos_counts[li])
+            np.testing.assert_array_equal(pr.neg_counts[li],
+                                          jr.neg_counts[li])
+        assert jr.found[:B_LIVE].any() and not jr.found[:B_LIVE].all()
+    np.testing.assert_array_equal(pe.probe_split_np(), je.probe_split_np())
+    np.testing.assert_array_equal(pe.filter_stats_np(),
+                                  je.filter_stats_np())
+    # the model arm really served: some probes went the model path
+    assert pe.probe_split_np()[:, 0].sum() > 0

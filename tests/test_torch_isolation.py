@@ -37,6 +37,13 @@ def _port_modules():
 def test_importing_every_module_loads_no_jax_or_repro():
     mods = _port_modules()
     assert "repro_torch.core.engine" in mods and len(mods) >= 18
+    assert {"repro_torch.obs", "repro_torch.obs.registry",
+            "repro_torch.obs.tracer", "repro_torch.obs.trace",
+            "repro_torch.obs.export", "repro_torch.server",
+            "repro_torch.server.admission", "repro_torch.server.cache",
+            "repro_torch.server.coordinator", "repro_torch.server.frontend",
+            "repro_torch.server.pipeline",
+            "repro_torch.core.workloads"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, sys
         sys.path.insert(0, {PORT!r})

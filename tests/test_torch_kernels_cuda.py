@@ -19,9 +19,10 @@ with 1, 2, 4 and 8 lanes a (row, probe), at k of 1, 7, 8 and 12 on the
 (L, W) stacks of ``stack_edge_table`` (L of 1, 4 and 7, filterless rows
 first, in the middle and last, a one-word filter, rows whose nw is below
 the padded W; test_torch_filter_plane.py holds them to the JAX package)
-and ragged B of 1, 63 and 4096 + 37.  The last tests drive whole stores —
-file- and level-granularity, and the sharded store — on the card and on
-the CPU."""
+and ragged B of 1, 63 and 4096 + 37.  ``greedy_plr_torch``'s loop runs
+on the card with synchronizing calls made errors, and fits the segments
+of ``greedy_plr_np``.  The last tests drive whole stores — file- and
+level-granularity, and the sharded store — on the card and on the CPU."""
 
 import functools
 import os
@@ -35,7 +36,8 @@ import torch  # noqa: E402
 
 from repro_torch.core.bloom import bloom_build_np, bloom_words  # noqa: E402
 from repro_torch.core.datasets import make_dataset  # noqa: E402
-from repro_torch.core.plr import greedy_plr_np  # noqa: E402
+from repro_torch.core.plr import (greedy_plr_np, greedy_plr_tensors,  # noqa: E402
+                                  greedy_plr_torch)
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 
 SENTINEL = np.iinfo(np.int64).max
@@ -454,6 +456,39 @@ def test_bloom_probe_stack_cuda_matches_plain(k, L, B, G):
     if B > 64:                       # the filters answer both ways
         filtered = want[nw > 0]
         assert bool(filtered.any()) and not bool(filtered.all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["normal", "duplicates", "cap_clamp"])
+def test_greedy_plr_torch_on_cuda_never_syncs_in_loop(case):
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    keys = make_dataset("normal", 512, seed=6)
+    delta, cap = 8, 256
+    if case == "duplicates":
+        keys = np.sort(np.concatenate([keys, keys[:50], keys[300:310]]))
+    elif case == "cap_clamp":
+        delta, cap = 1, 8
+    x = torch.from_numpy(keys).to("cuda", torch.float64)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        greedy_plr_tensors(x, delta, cap)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    m_pt = greedy_plr_torch(keys, delta=delta, cap=cap)
+    m_cpu = greedy_plr_torch(keys, delta=delta, cap=cap, device="cpu")
+    for a, b in ((m_cpu.starts, m_pt.starts), (m_cpu.slopes, m_pt.slopes),
+                 (m_cpu.intercepts, m_pt.intercepts)):
+        np.testing.assert_array_equal(b, a)
+    assert m_pt.n_segments == m_cpu.n_segments
+    if case != "cap_clamp":
+        m_np = greedy_plr_np(keys, delta=delta, pad_to=cap)
+        assert m_pt.n_segments == m_np.n_segments
+        n = m_np.n_segments
+        np.testing.assert_allclose(m_pt.starts[:n], m_np.starts[:n])
+        np.testing.assert_allclose(m_pt.slopes[:n], m_np.slopes[:n],
+                                   rtol=1e-12)
 
 
 @pytest.mark.gpu

@@ -329,12 +329,34 @@ def test_io_pool_sizes_give_identical_results(tmp_path, workers):
 
 
 def test_mesh_and_obs_are_later_slices(tmp_path):
+    """The shard_map mesh GET is a later slice and raises; the obs plane is
+    ported: the attached fleet answers and reports as the reference's
+    does (every counter and gauge equal, per-shard labels and the fleet
+    aggregate), and detaching restores the null handles."""
+    import _torch_serving as common
     with pytest.raises(NotImplementedError, match="later slice"):
         psh.ShardedStore.open(str(tmp_path / "m"), mesh=object(),
                               device="cpu")
-    st = psh.ShardedStore.open(str(tmp_path / "s"),
-                               psh.ShardedConfig(n_shards=2), device="cpu")
-    assert not st.uses_shard_map
-    with pytest.raises(NotImplementedError, match="later slice"):
-        st.attach_obs(object())
-    st.close()
+    rng = np.random.default_rng(7)
+    keys = rng.permutation(np.arange(1, 6001, dtype=np.int64) * 5)
+    sync_file_ids()
+    rs, ps = _open_pair(tmp_path, keys, 2)
+    assert not ps.uses_shard_map
+    ro, po = common.RO.Obs(), common.PO.Obs()
+    rs.attach_obs(ro)
+    ps.attach_obs(po)
+    for st in (rs, ps):
+        for off in range(0, keys.shape[0], 2048):
+            ks = keys[off: off + 2048]
+            st.put_batch(ks, _values_for(ks, 0))
+    _get_both(rs, ps, np.concatenate([keys[:700], keys[:100] + 1]))
+    snap = po.snapshot()
+    common.assert_snapshots_equal(ro.snapshot(), snap)
+    assert common.sample(snap, "fleet_gets_total") == 800
+    assert {dict(x["labels"])["shard"]
+            for x in snap["store_n_records"]["samples"]} == {"0", "1"}
+    ps.detach_obs()
+    assert ps._obs is None
+    assert not any(sh.engine.record_probe_split for sh in ps.shards)
+    rs.close()
+    ps.close()

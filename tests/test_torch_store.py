@@ -209,13 +209,33 @@ def test_learning_between_reads_serves_the_models():
 
 
 def test_unported_options_raise():
-    """Durable storage, level granularity and the I/O pool are ported;
-    the obs plane is the one store option left for a later slice."""
-    st = P.BourbonStore(P.StoreConfig(device="cpu"))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        st.attach_obs(object())
+    """Durable storage, level granularity, the I/O pool and the obs plane
+    are ported: a store attached to an obs plane answers and reports as the
+    reference's does (every counter and gauge equal), and detaching
+    restores the null handles.  Only an unknown granularity raises."""
+    import _torch_serving as common
+    rs, ps = _pair(policy="offline")
+    ro, po = common.RO.Obs(), common.PO.Obs()
+    rs.attach_obs(ro, labels={"shard": "0"})
+    ps.attach_obs(po, labels={"shard": "0"})
+    keys = P.make_dataset("osm", 1 << 12, seed=5)
+    for st in (rs, ps):
+        st.put_batch(keys)
+        st.flush_all()
+        st.learn_all()
+    probes = np.concatenate([keys[:300], keys[:100] + 1])
+    _get_both(rs, ps, probes)
+    _same_state(rs, ps)
+    snap = po.snapshot()
+    common.assert_snapshots_equal(ro.snapshot(), snap)
+    assert common.sample(snap, "store_gets_total", shard="0") == 400
+    assert ps.engine.probe_acc_materializations == 1
+    ps.detach_obs()
+    assert ps._obs is None and not ps.engine.record_probe_split
+    assert ps.executor.events is None
     with pytest.raises(ValueError, match="granularity"):
         P.BourbonStore(P.StoreConfig(granularity="block", device="cpu"))
+    st = P.BourbonStore(P.StoreConfig(device="cpu"))
     st.attach_io(object())
     st.detach_io()
     assert P.BourbonStore(P.StoreConfig(granularity="level",
