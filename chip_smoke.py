@@ -46,6 +46,17 @@
         just before F and read just after; the same three kernels must
         have launched.  Then those three are held against their plain
         versions on probes F dispatched, at the batch sizes it sent.
+     G  the mesh GET (phases D-F run without a mesh, whatever the
+        machine): D's store is closed and reopened on a mesh of one
+        device a shard — four distinct cards when there are four, else
+        cuda:0 four times — and D's 32 batches replay, every answer
+        checked and byte for byte equal to the same batches on the same
+        store without a mesh; F's arms 1-2 serve once each over it; and
+        ``port/examples/distributed_get.py`` runs at ``--shard-keys`` keys
+        over every visible card.  Counts are zeroed just before G and read
+        just after: the three kernels must launch once a mesh device a
+        mesh GET.  Then they are held against their plain versions at G's
+        one-row shapes, on every mesh device's shard row.
 4. Holds each kernel against its plain PyTorch version on the same CUDA
    tensors at the live state's shapes (4096 probes; the stack probe at
    both of its live shapes; ``plr_lookup`` also at phase D's stacked shard
@@ -397,10 +408,12 @@ def _sharded_cfg(device: str):
                        device=device)
 
 
-def run_sharded_gets(st, truth: Truth, batches: list, tag: str) -> dict:
+def run_sharded_gets(st, truth: Truth, batches: list, tag: str,
+                     answers: list | None = None) -> dict:
     """``run_gets`` for the sharded store: values fetched, every answer
     checked; the first batch (which builds the device state) is timed
-    apart."""
+    apart.  With ``answers``, each batch's found flags and values are
+    appended to it as bytes."""
     from repro_torch.kernels import ops
     launched = dict(ops.launches)
     secs = []
@@ -409,6 +422,8 @@ def run_sharded_gets(st, truth: Truth, batches: list, tag: str) -> dict:
         found, values = st.get_batch(probes, with_values=True)
         secs.append(time.perf_counter() - t0)
         truth.check(f"{tag} batch {bi}", probes, found, values)
+        if answers is not None:
+            answers.append(found.tobytes() + values.tobytes())
     per = sorted(secs[1:])
     return {"gets": sum(p.shape[0] for p in batches),
             "batches": len(batches), "first_batch_s": secs[0],
@@ -441,10 +456,12 @@ def _level_lookup_pair(sh, probes: np.ndarray):
 
 def drive_sharded(device: str, n_keys: int, seed: int, card: str,
                   n_batches: int = 32):
-    """Phases D and E.  Returns the reopened store, the kernel launch
+    """Phases D and E, on the stacked GET (``mesh=None``, whatever cards
+    the machine has).  Returns the reopened store, the kernel launch
     counts of D and E, the shard engine's FilterState (for the stack
     probe's check at its second live shape), the temporary directory to
-    remove, and the store's Truth (for phase F)."""
+    remove, the store's Truth (for phases F and G) and D's batches (for
+    phase G)."""
     import torch
     from repro_torch.core import make_dataset
     from repro_torch.distributed import ShardedConfig, ShardedStore
@@ -460,7 +477,7 @@ def drive_sharded(device: str, n_keys: int, seed: int, card: str,
     try:
         t0 = time.perf_counter()
         st = ShardedStore.open(d, ShardedConfig(N_SHARDS, bounds),
-                               _sharded_cfg(device))
+                               _sharded_cfg(device), mesh=None)
         flushed, tail = perm[:-SHARD_BATCH], perm[-SHARD_BATCH:]
         for off in range(0, flushed.shape[0], SHARD_BATCH):
             st.put_batch(flushed[off: off + SHARD_BATCH])
@@ -482,7 +499,7 @@ def drive_sharded(device: str, n_keys: int, seed: int, card: str,
         del st                              # KILL: no close()
         gc.collect()
         t0 = time.perf_counter()
-        st = ShardedStore.open(d, device=device)
+        st = ShardedStore.open(d, device=device, mesh=None)
         reopen_s = time.perf_counter() - t0
         stats = st.stats()
         if stats["files_learned"] != 0 or stats["level_models_recovered"] < 1:
@@ -562,7 +579,7 @@ def drive_sharded(device: str, n_keys: int, seed: int, card: str,
             "launches": e_launch, "filter_state": list(fstate.bits.shape),
             "direct_lookup_equal": True, "card": card}))
         launches = dict(ops.launches)       # read just after phase E
-        return st, launches, fstate, d, truth
+        return st, launches, fstate, d, truth, batches
     except BaseException:
         shutil.rmtree(d, ignore_errors=True)
         raise
@@ -613,38 +630,53 @@ def served_streams(truth: Truth, seed: int, rounds: int = F_ROUNDS,
     return streams
 
 
-class DispatchCount:
-    """Counts the store's ``dispatch_get`` calls while installed (each is
-    one dispatched batch, whichever server sends it)."""
+class _Patch:
+    """Replaces the store's method ``name`` with ``self.wrap(orig)`` while
+    installed, and puts back what it found, so that patches nest."""
 
-    def __init__(self, st):
-        self.st, self.n = st, 0
+    def __init__(self, st, name: str):
+        self.st, self.name = st, name
 
     def __enter__(self):
-        orig = self.st.dispatch_get
-
-        def counted(*args, **kw):
-            self.n += 1
-            return orig(*args, **kw)
-
-        self.st.dispatch_get = counted
+        self.found = self.st.__dict__.get(self.name)
+        setattr(self.st, self.name, self.wrap(getattr(self.st, self.name)))
         return self
 
     def __exit__(self, *exc):
-        del self.st.dispatch_get
+        if self.found is None:
+            delattr(self.st, self.name)
+        else:
+            setattr(self.st, self.name, self.found)
 
 
-class DispatchCapture:
+class DispatchCount(_Patch):
+    """Counts the store's ``dispatch_get`` calls (each one dispatched
+    batch, whichever server sends it), or those of its method ``name``,
+    while installed."""
+
+    def __init__(self, st, name: str = "dispatch_get"):
+        super().__init__(st, name)
+        self.n = 0
+
+    def wrap(self, orig):
+        def counted(*args, **kw):
+            self.n += 1
+            return orig(*args, **kw)
+        return counted
+
+
+class DispatchCapture(_Patch):
     """Keeps, while installed, the probes of up to F_CHECK_SETS batches of
     each padded size that the store's ``_dist_dispatch`` launches (keyed
-    by that size, the batch the kernels see)."""
+    by the power of two it pads to; a mesh of four rounds no such size
+    further)."""
 
     def __init__(self, st):
-        self.st, self.sets = st, {}
+        super().__init__(st, "_dist_dispatch")
+        self.sets = {}
 
-    def __enter__(self):
+    def wrap(self, orig):
         from repro_torch.core.distributed import next_pow2
-        orig = self.st._dist_dispatch
 
         def captured(probes):
             kept = self.sets.setdefault(next_pow2(max(probes.shape[0], 64)),
@@ -652,12 +684,7 @@ class DispatchCapture:
             if len(kept) < F_CHECK_SETS:
                 kept.append(np.array(probes, np.int64))
             return orig(probes)
-
-        self.st._dist_dispatch = captured
-        return self
-
-    def __exit__(self, *exc):
-        del self.st._dist_dispatch
+        return captured
 
 
 def serve_closed_loop(srv, truth: Truth, streams: list, tag: str,
@@ -847,30 +874,17 @@ def _serve_arm(st, truth: Truth, i: int, cls, cfg, streams: list, seed: int,
     return rec, ans
 
 
-def drive_served(st, truth: Truth, seed: int, card: str) -> dict:
-    """Phase F: the served GET on the reopened sharded store of phase D, in
-    five arms, each a fresh server on the same store (bench_serve part A2's
-    geometry): 1 ``BourbonServer``; 2 ``PipelinedServer``; 3 the same with
-    an I/O pool of 2 workers; 4 as 3 with the obs plane on (stage tracer
-    every 4th tick, one request in 64 traced); 5 as 4 with 5% of the
-    requests PUTs of present keys.  Arms 1-4 run F_REPEATS times each, in
-    turns, serve the same streams and must answer byte for byte alike;
-    every answer is held to the truth.  An arm's rates and latencies are
-    the medians of its runs, and the ratios of adjacent arms are taken run
-    by run.  Launch counts are zeroed just before the first run and read
-    just after arm 5; the probes of the dispatched batches are captured
-    for :func:`served_shape_checks`.  Returns the F record (also printed as
-    the phase line)."""
-    from repro_torch.kernels import ops
+def served_arms(st) -> tuple:
+    """Phase F's five server arms on ``st``, as (name, class, config), and
+    the coordinator's budget a tick: bench_serve's 2048 µs, or the store's
+    atomic segment collection where that is larger (the coordinator
+    refuses a budget below it)."""
     from repro_torch.obs import ObsConfig
     from repro_torch.server import (BourbonServer, CoordinatorConfig,
                                     PipelineConfig, PipelinedServer,
                                     ServerConfig)
-
-    t_phase = time.perf_counter()
     atomic = max(sh.cfg.costs.t_gc(sh.cfg.vlog_seg_slots,
                                    sh.cfg.vlog_seg_slots) for sh in st.shards)
-    # the coordinator refuses a budget below one segment's collection
     budget = max(F_BUDGET_US, atomic)
     base = dict(max_batch_keys=1024, max_wait_ticks=0,
                 queue_capacity=2 * F_DEPTH * F_CLIENTS,
@@ -888,6 +902,27 @@ def drive_served(st, truth: Truth, seed: int, card: str) -> dict:
              PipelineConfig(**pipe, io_workers=2, obs=obs)),
             ("PipelinedServer+io2+obs+puts", PipelinedServer,
              PipelineConfig(**pipe, io_workers=2, obs=obs))]
+    return arms, budget
+
+
+def drive_served(st, truth: Truth, seed: int, card: str) -> dict:
+    """Phase F: the served GET on the reopened sharded store of phase D, in
+    five arms, each a fresh server on the same store (bench_serve part A2's
+    geometry): 1 ``BourbonServer``; 2 ``PipelinedServer``; 3 the same with
+    an I/O pool of 2 workers; 4 as 3 with the obs plane on (stage tracer
+    every 4th tick, one request in 64 traced); 5 as 4 with 5% of the
+    requests PUTs of present keys.  Arms 1-4 run F_REPEATS times each, in
+    turns, serve the same streams and must answer byte for byte alike;
+    every answer is held to the truth.  An arm's rates and latencies are
+    the medians of its runs, and the ratios of adjacent arms are taken run
+    by run.  Launch counts are zeroed just before the first run and read
+    just after arm 5; the probes of the dispatched batches are captured
+    for :func:`served_shape_checks`.  Returns the F record (also printed as
+    the phase line)."""
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    arms, budget = served_arms(st)
     streams = served_streams(truth, seed + 20)
     put_streams = served_streams(truth, seed + 21, put_share=F_PUT_SHARE)
     n_puts = sum(isinstance(x, tuple) for s in put_streams for x in s)
@@ -948,49 +983,291 @@ def served_shape_checks(st, sets: dict) -> dict:
     probes phase F dispatched (``DispatchCapture.sets``), padded and routed
     as ``_dist_dispatch`` pads and routes them, on the sharded state as it
     stands after F: the batch sizes the server sends, which the checks at
-    CHECK_B do not cover.  ``bounded_search`` gets the plain positions, so
-    that its check stands alone.  Per kernel: the batch sizes, the sets,
-    the outputs that differ and the largest difference."""
+    CHECK_B do not cover.  Per kernel: the batch sizes, the sets, the
+    outputs that differ and the largest difference."""
     import torch
     from repro_torch.core.store import _PAD_PROBE
-    from repro_torch.kernels import ops, ref
     state = st.device_state()
-    k = st.shards[0].cfg.lsm.bloom_k
     dev = state["keys"].device
-    models = (state["starts"], state["slopes"], state["icepts"],
-              state["nseg"], state["n"])
-    out = {name: {"B": sorted(sets), "sets": 0, "mismatches": 0,
-                  "max_abs_err": 0.0}
-           for name in ("bloom_probe_stack", "plr_lookup", "bounded_search")}
+    padded = []
     for B, kept in sorted(sets.items()):
         for probes in kept:
             buf = np.full(B, _PAD_PROBE, np.int64)
             buf[: probes.shape[0]] = probes
-            p = torch.from_numpy(buf).to(dev)
-            rows = torch.from_numpy(st.shard_of(buf)).to(dev)
-            pos = ref.plr_lookup_rows_ref(*models, rows, p)
-            pairs = {
-                "bloom_probe_stack": (
-                    ops.bloom_probe_stack(state["fbits"], state["fnw"], p, k),
-                    ref.bloom_probe_stack_ref(state["fbits"], state["fnw"],
-                                              p, k)),
-                "plr_lookup": (ops.plr_lookup(*models, rows, p), pos),
-                "bounded_search": (
-                    ops.bounded_search(state["keys"], state["n"], rows, pos,
-                                       p, st.delta),
-                    ref.bounded_search_rows_ref(state["keys"], state["n"],
-                                                rows, pos, p, st.delta))}
-            for name, (got, want) in pairs.items():
-                got = got if isinstance(got, tuple) else (got,)
-                want = want if isinstance(want, tuple) else (want,)
-                rec = out[name]
-                rec["sets"] += 1
-                for g, w in zip(got, want):
-                    d = (g.long() - w.long()).abs()
-                    rec["mismatches"] += int((d != 0).sum())
-                    rec["max_abs_err"] = max(rec["max_abs_err"],
-                                             float(d.max()))
+            padded.append((torch.from_numpy(st.shard_of(buf)).to(dev),
+                           torch.from_numpy(buf).to(dev)))
+    out = _compare_sets(state, st.shards[0].cfg.lsm.bloom_k, st.delta,
+                        padded)
+    for rec in out.values():
+        rec["B"] = sorted(sets)
     return out
+
+
+# ----------------------------------------------------------------------------
+# the mesh GET (phase G)
+# ----------------------------------------------------------------------------
+
+G_ARMS = (1, 2)           # phase F's arms served once each over the mesh
+G_EXAMPLE_BATCHES = 8     # GETs of port/examples/distributed_get.py
+MESH_KERNELS = ("bloom_probe_stack", "plr_lookup", "bounded_search")
+
+
+def _example():
+    """``port/examples/distributed_get.py`` as a module."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "port",
+                        "examples", "distributed_get.py")
+    spec = importlib.util.spec_from_file_location("distributed_get", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def drive_mesh(st, path: str, truth: Truth, batches: list, n_keys: int,
+               seed: int, device: str, card: str):
+    """Phase G: the mesh GET.  D's batches run once more on D's store
+    without a mesh, as it stands after F; the store is closed and reopened
+    from its directory on a mesh of one device a shard (four distinct
+    cards when the machine has four, else ``device`` four times); the
+    batches replay, every answer checked against the truth and byte for
+    byte against the answers without a mesh; F's arms 1-2 serve once each
+    over the mesh store, answering alike; and
+    ``port/examples/distributed_get.py`` runs at ``n_keys`` keys over
+    every visible card.  Counts are zeroed just before G and read just
+    after: each of the three kernels must launch once a mesh device a
+    mesh GET (the example's filterless state runs no stack probe).
+    Returns the mesh store, the G record (also printed) and the probe sets
+    for :func:`mesh_shape_checks`: the batches the mesh store dispatched
+    (``DispatchCapture.sets``) and the example's keys, δ and state."""
+    import torch
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.distributed import ShardedStore
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    plain = []
+    run_sharded_gets(st, truth, batches, "G without a mesh", plain)
+    st.close()
+    distinct = (device != "cpu"
+                and torch.cuda.device_count() >= N_SHARDS)
+    one = "cpu" if device == "cpu" else "cuda:0"
+    mesh = make_mesh((N_SHARDS,), ("shard",),
+                     None if distinct else [one] * N_SHARDS)
+    ex_mesh = (make_mesh((torch.cuda.device_count(),), ("data",))
+               if device != "cpu" else make_mesh((1,), ("data",), ["cpu"]))
+    streams = served_streams(truth, seed + 20)
+    ops.reset_launches()                 # the mesh path starts here
+    t0 = time.perf_counter()
+    stm = ShardedStore.open(path, device=device, mesh=mesh)
+    reopen_s = time.perf_counter() - t0
+    if not stm.uses_shard_map:
+        fail("phase G: the store did not take its mesh")
+    arms, _ = served_arms(stm)
+    with (DispatchCapture(stm) as capture,
+          DispatchCount(stm, "_dist_dispatch") as dc):
+        answers = []
+        res = run_sharded_gets(stm, truth, batches, "G", answers)
+        if answers != plain:
+            bad = sum(a != b for a, b in zip(answers, plain))
+            fail(f"phase G: {bad} batches answered differently from the "
+                 "same store without a mesh")
+
+        def get(p):
+            return stm.get_batch(p, with_values=True)
+
+        if device != "cpu":
+            res["profile"] = profile_gets(get, batches[:8])
+        served = []
+        for i in G_ARMS:
+            name, cls, cfg = arms[i - 1]
+            rec, ans = _serve_arm(stm, truth, i, cls, cfg, streams, seed,
+                                  profile=False)
+            served.append((rec, ans))
+        if any(ans != served[0][1] for _, ans in served):
+            fail("phase G: the served arms answered differently")
+    t0 = time.perf_counter()
+    example = _example()
+    ex_keys, ex_cfg, ex_state = example.build(ex_mesh, n_keys)
+    ex = example.run(ex_mesh, ex_keys, ex_cfg, ex_state, G_EXAMPLE_BATCHES,
+                     seed)
+    ex["total_s"] = time.perf_counter() - t0
+    if device != "cpu":
+        torch.cuda.synchronize()
+    launches = dict(ops.launches)        # read just after phase G
+    expect = {name: mesh.size * dc.n for name in MESH_KERNELS}
+    for name in ("plr_lookup", "bounded_search"):
+        expect[name] += ex_mesh.size * G_EXAMPLE_BATCHES
+    if device != "cpu":
+        for name in MESH_KERNELS:
+            if launches[name] != expect[name]:
+                fail(f"phase G: {name} launched {launches[name]} times, "
+                     f"not {expect[name]} (once a mesh device a GET)")
+    rec = {"phase": "G",
+           "mesh": {"size": mesh.size, "distinct_cards": distinct,
+                    "devices": [str(d) for d in mesh.devices]},
+           "reopen_s": reopen_s, "first_batch_s": res["first_batch_s"],
+           "gets_per_s": res["gets_per_s"],
+           "batch_ms_median": res["batch_ms_median"],
+           "batch_ms_max": res["batch_ms_max"],
+           "identical_to_no_mesh": True, "mesh_gets": dc.n,
+           "profile": res.get("profile"),
+           "arms": [{k: r[k] for k in ("arm", "requests_per_s",
+                                       "keys_per_s", "p50_ms", "p99_ms",
+                                       "dispatches", "launches_per_dispatch",
+                                       "cache_hit_rate")}
+                    for r, _ in served],
+           "distributed_get": {**ex, "mesh": [str(d)
+                                              for d in ex_mesh.devices]},
+           "launches": launches, "expected_launches": expect,
+           "seconds": time.perf_counter() - t_phase, "card": card}
+    print(json.dumps(rec))
+    return stm, rec, {"dispatched": capture.sets,
+                      "example": (ex_keys, ex_cfg.delta, ex_state[0])}
+
+
+def _mesh_pad(p: np.ndarray, size: int, dev):
+    """``p`` padded as the mesh GET pads a batch over ``size`` devices, on
+    ``dev``, with the one-row ``rows`` every mesh device runs."""
+    import torch
+    from repro_torch.core.distributed import next_pow2
+    from repro_torch.core.store import _PAD_PROBE
+    B = -(-next_pow2(max(p.shape[0], 64)) // size) * size
+    buf = np.full(B, _PAD_PROBE, np.int64)
+    buf[: p.shape[0]] = p
+    return (torch.zeros(B, dtype=torch.int32, device=dev),
+            torch.from_numpy(buf).to(dev))
+
+
+def _compare_sets(state: dict, k: int, delta: int, padded: list,
+                  names=MESH_KERNELS) -> dict:
+    """The kernels ``names`` (of the three the sharded GET runs) against
+    their plain versions on the device state ``state`` (stacked, or one
+    mesh row) over the (rows, probes) sets ``padded``.  ``bounded_search``
+    gets the plain positions, so that its check stands alone.  Per kernel:
+    the sets, the outputs that differ and the largest difference."""
+    from repro_torch.kernels import ops, ref
+    tables = (state["starts"], state["slopes"], state["icepts"],
+              state["nseg"], state["n"])
+    out = {name: {"sets": 0, "mismatches": 0, "max_abs_err": 0.0}
+           for name in names}
+    for rows, p in padded:
+        pos = ref.plr_lookup_rows_ref(*tables, rows, p)
+        pairs = {
+            "plr_lookup": lambda: (ops.plr_lookup(*tables, rows, p), pos),
+            "bounded_search": lambda: (
+                ops.bounded_search(state["keys"], state["n"], rows, pos, p,
+                                   delta),
+                ref.bounded_search_rows_ref(state["keys"], state["n"], rows,
+                                            pos, p, delta)),
+            "bloom_probe_stack": lambda: (
+                ops.bloom_probe_stack(state["fbits"], state["fnw"], p, k),
+                ref.bloom_probe_stack_ref(state["fbits"], state["fnw"], p,
+                                          k))}
+        for name in names:
+            got, want = pairs[name]()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            rec = out[name]
+            rec["sets"] += 1
+            for g, w in zip(got, want):
+                d = (g.long() - w.long()).abs()
+                rec["mismatches"] += int((d != 0).sum())
+                rec["max_abs_err"] = max(rec["max_abs_err"], float(d.max()))
+    return out
+
+
+def _merge(into: dict, part: dict) -> None:
+    for name, rec in part.items():
+        got = into.setdefault(name, {"sets": 0, "mismatches": 0,
+                                     "max_abs_err": 0.0})
+        got["sets"] += rec["sets"]
+        got["mismatches"] += rec["mismatches"]
+        got["max_abs_err"] = max(got["max_abs_err"], rec["max_abs_err"])
+
+
+def mesh_shape_checks(stm, batches: list, sets: dict, seed: int) -> dict:
+    """The three kernels of the mesh GET against their plain versions at
+    every one-row shape phase G ran them at, on every mesh device's own
+    shard row (the filter row (1, W), the row's segment table (1, S) and
+    keys (1, C); every device sees the whole padded batch):
+
+    - ``mesh_shape``: TIMED_BATCHES probe sets made of D's batches, timed
+      on mesh device 0's row;
+    - ``mesh_dispatched_shape``: the batches the mesh store dispatched in
+      G (``sets["dispatched"]``, 64-4096 probes, arms 1-2 included);
+    - ``mesh_example_shape``: ``plr_lookup`` and ``bounded_search`` on row
+      0 of the example's filterless state (``sets["example"]``, one row of
+      ``--shard-keys`` keys on one card), over G_EXAMPLE_BATCHES sets of
+      4096 probes, half of them absent keys, with the keys beyond both
+      ends and the pad probe among them.
+
+    Returns {tag: {kernel: record}}."""
+    from repro_torch.core.store import _PAD_PROBE
+    from repro_torch.kernels import ops, ref
+    state = stm.device_state()
+    mesh = stm._mesh
+    k = stm.shards[0].cfg.lsm.bloom_k
+    timed, dispatched = {}, {}
+    for s, (row, dev) in enumerate(zip(state, mesh.devices)):
+        padded = [_mesh_pad(batches[i % len(batches)], mesh.size, dev)
+                  for i in range(TIMED_BATCHES)]
+        if s == 0:
+            tables = (row["starts"], row["slopes"], row["icepts"],
+                      row["nseg"], row["n"])
+            probes = [p for _, p in padded]
+            trips = [(r, p, ref.plr_lookup_rows_ref(*tables, r, p))
+                     for r, p in padded]
+            fns = {
+                "bloom_probe_stack": (
+                    lambda i: ops.bloom_probe_stack(row["fbits"], row["fnw"],
+                                                    probes[i], k),
+                    lambda i: ref.bloom_probe_stack_ref(
+                        row["fbits"], row["fnw"], probes[i], k),
+                    _stack_work(row["fbits"], row["fnw"], probes, k)),
+                "plr_lookup": (*_plr_fns(tables, trips),
+                               _plr_work(tables, trips)),
+                "bounded_search": (
+                    lambda i: ops.bounded_search(
+                        row["keys"], row["n"], trips[i][0], trips[i][2],
+                        trips[i][1], stm.delta),
+                    lambda i: ref.bounded_search_rows_ref(
+                        row["keys"], row["n"], trips[i][0], trips[i][2],
+                        trips[i][1], stm.delta),
+                    _bounded_work(row["keys"], trips, stm.delta)),
+            }
+            for name, (kern, plain, work) in fns.items():
+                timed[name] = {
+                    **_measure(kern, plain, work, _symbol(name)),
+                    "rows": mesh.size, "sets": TIMED_BATCHES,
+                    "shape": {"L": 1, "W": row["fbits"].shape[1],
+                              "S": row["starts"].shape[1],
+                              "C": row["keys"].shape[1],
+                              "B": probes[0].shape[0]}}
+        else:
+            _merge(timed, _compare_sets(row, k, stm.delta, padded))
+        _merge(dispatched, _compare_sets(
+            row, k, stm.delta,
+            [_mesh_pad(p, mesh.size, dev)
+             for kept in sets["dispatched"].values() for p in kept]))
+    for rec in dispatched.values():
+        rec["B"] = sorted(sets["dispatched"])
+    ex_keys, ex_delta, ex_row = sets["example"]
+    dev = ex_row["keys"].device
+    rng = np.random.default_rng(seed + 30)
+    edges = np.array([ex_keys[0] - 1, ex_keys[-1] + 1, _PAD_PROBE], np.int64)
+    ex_sets = []
+    for _ in range(G_EXAMPLE_BATCHES):
+        p = np.concatenate([rng.choice(ex_keys, 2048),
+                            Truth(ex_keys, 0).absent(rng, 2048 - 3), edges])
+        ex_sets.append(_mesh_pad(rng.permutation(p), 1, dev))
+    example = _compare_sets(ex_row, k, ex_delta, ex_sets,
+                           ("plr_lookup", "bounded_search"))
+    for rec in example.values():
+        rec["shape"] = {"S": ex_row["starts"].shape[1],
+                        "C": ex_row["keys"].shape[1], "B": 4096,
+                        "absent_share": 0.5}
+    return {"mesh_shape": timed, "mesh_dispatched_shape": dispatched,
+            "mesh_example_shape": example}
 
 
 # ----------------------------------------------------------------------------
@@ -1060,6 +1337,48 @@ def _plr_work(tables, sets):
     def work(i):
         st = _steps(nseg[sets[i][0].long()].clamp(1, starts.shape[1]))
         return int((24 + 8 * (st + 2)).sum()), int((4 * st + 4).sum())
+    return work
+
+
+def _bounded_work(keys, sets, delta: int):
+    """Bytes and operations ``bounded_search`` over ``keys`` (F, C) needs
+    on probe set i = (rows, probes, pos): each probe's key, row, n, pos
+    and outputs, and the window's keys up to the first match (the whole
+    window on a miss), 8 B each; three operations a key read."""
+    import torch
+
+    def work(i):
+        rows, p, pos = sets[i]
+        C = keys.shape[1]
+        offs = torch.arange(-(delta + 1), delta + 2, device=p.device)
+        win = (pos.long()[:, None] + offs).clamp(0, C - 1)
+        eq = keys[rows.long()[:, None], win] == p[:, None]
+        read = torch.where(eq.any(1), eq.to(torch.uint8).argmax(1) + 1,
+                           2 * delta + 3)
+        return (int((8 + 4 + 4 + 4 + 4 + 1 + 8 * read).sum()),
+                int((3 * read + 2).sum()))
+    return work
+
+
+def _stack_work(bits, nw, sets, k: int):
+    """Bytes and operations the stack probe over (``bits``, ``nw``) needs
+    on probe set i (a probe tensor): each probe read once (8 B), nw (4 B a
+    row), and per (row, probe) of a row with a filter the words up to the
+    first clear bit (8 B each; the kernel reads all k, a data-dependent
+    early exit needs no more), one output byte per (row, probe); ~10
+    64-bit operations of hashing a probe and ~6 per word."""
+    import torch
+    from repro_torch.kernels import ref
+
+    def work(i):
+        hits = ref.bloom_probe_stack_hits(bits, nw, sets[i], k).long()
+        # hash t's word is needed only while every earlier hash's bit is
+        # set
+        reached = torch.cat([torch.ones_like(hits[:1]),
+                             hits.cumprod(0)[:-1]])
+        n_words = int((reached * (nw > 0).long()[None, :, None]).sum())
+        L, B = bits.shape[0], sets[i].shape[0]
+        return 8 * B + 4 * L + 8 * n_words + L * B, 10 * B + 6 * n_words
     return work
 
 
@@ -1276,17 +1595,7 @@ def kernel_checks(store, launches: dict, snapshot,
     # per kernel and probe set: (bytes, operations) this set's data needs —
     # each probe's reads counted once (8 B per gathered element), outputs
     # written once; operations are the 64-bit compares, adds and shifts
-    def w_bounded(i):
-        rows, p, pos = sets[i]
-        d = cfg.plr_delta
-        C = lv.keys.shape[1]
-        offs = torch.arange(-(d + 1), d + 2, device=dev)
-        win = (pos.long()[:, None] + offs).clamp(0, C - 1)
-        eq = lv.keys[rl[i][:, None], win] == p[:, None]
-        read = torch.where(eq.any(1), eq.to(torch.uint8).argmax(1) + 1,
-                           2 * d + 3)
-        return (int((8 + 4 + 4 + 4 + 4 + 1 + 8 * read).sum()),
-                int((3 * read + 2).sum()))
+    w_bounded = _bounded_work(lv.keys, sets, cfg.plr_delta)
 
     def w_bloom(i):
         rows, p, _ = sets[i]
@@ -1456,7 +1765,6 @@ def stack_checks(st, fstate, launches_abc: dict, launches_de: dict,
     shape also gets the first-version comparison and the group sweep.
     ``launches_abc`` and ``launches_de`` are the counts read after phases
     A–C and D–E."""
-    import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref
 
@@ -1465,26 +1773,6 @@ def stack_checks(st, fstate, launches_abc: dict, launches_de: dict,
     keys = state["keys"][state["keys"] != np.iinfo(np.int64).max]
     sets = [p for _, p in _probe_sets(keys.cpu().numpy(), keys.device, 2000,
                                       lambda p: np.zeros(p.shape, np.int32))]
-
-    def work(bits, nw):
-        """Bytes and operations probe set ``i`` needs: each probe read once
-        (8 B), nw (4 B a row), and per (row, probe) of a row with a filter
-        the words up to the first clear bit (8 B each; the kernel reads all
-        k, a data-dependent early exit needs no more), one output byte per
-        (row, probe); ~10 64-bit operations of hashing a probe and ~6 per
-        word."""
-        def at(i):
-            hits = ref.bloom_probe_stack_hits(bits, nw, sets[i], k).long()
-            # hash t's word is needed only while every earlier hash's bit
-            # is set
-            reached = torch.cat([torch.ones_like(hits[:1]),
-                                 hits.cumprod(0)[:-1]])
-            n_words = int((reached * (nw > 0).long()[None, :, None]).sum())
-            L = bits.shape[0]
-            return (8 * CHECK_B + 4 * L + 8 * n_words + L * CHECK_B,
-                    10 * CHECK_B + 6 * n_words)
-        return at
-
     out = {}
     for tag, bits, nw in (("shards", state["fbits"], state["fnw"]),
                           ("engine", fstate.bits, fstate.nw)):
@@ -1492,7 +1780,7 @@ def stack_checks(st, fstate, launches_abc: dict, launches_de: dict,
                                                               k))
         plain = (lambda i, b=bits, n=nw: ref.bloom_probe_stack_ref(
             b, n, sets[i], k))
-        out[tag] = {**_measure(kern, plain, work(bits, nw),
+        out[tag] = {**_measure(kern, plain, _stack_work(bits, nw, sets, k),
                                _symbol("bloom_probe_stack")),
                     "shape": {"L": bits.shape[0], "W": bits.shape[1],
                               "B": CHECK_B,
@@ -1655,7 +1943,7 @@ def main() -> int:
             fail(f"{k['name']} never launched on the main path")
     del store, snapshot
     gc.collect()
-    st, launches_de, fstate, shard_dir, truth = drive_sharded(
+    st, launches_de, fstate, shard_dir, truth, d_batches = drive_sharded(
         "cuda", args.shard_keys, args.seed, card)
     try:
         for name in ("bloom_probe_stack", "plr_lookup", "bounded_search"):
@@ -1681,13 +1969,24 @@ def main() -> int:
             k["launches"] += launches_f[k["name"]]
             if k["name"] in served["served_shape_checks"]:
                 k["served_shape"] = served["served_shape_checks"][k["name"]]
+        st, g, g_sets = drive_mesh(st, shard_dir, truth, d_batches,
+                                   args.shard_keys, args.seed, "cuda", card)
+        mesh_shapes = mesh_shape_checks(st, d_batches, g_sets, args.seed)
+        for k in checks:
+            k["launches_g"] = g["launches"][k["name"]]
+            k["launches"] += g["launches"][k["name"]]
+            for tag, recs in mesh_shapes.items():
+                if k["name"] in recs:
+                    k[tag] = recs[k["name"]]
         st.close()
     finally:
         shutil.rmtree(shard_dir, ignore_errors=True)
     for k in checks:
         other = {tag: k[tag]["mismatches"]
                  for tag in ("wide_check", "shard_shape", "level_model_shape",
-                             "engine_shape", "served_shape") if tag in k}
+                             "engine_shape", "served_shape", "mesh_shape",
+                             "mesh_dispatched_shape", "mesh_example_shape")
+                 if tag in k}
         if k["mismatches"] != 0 or any(other.values()):
             fail(f"{k['name']} disagrees with its plain version on "
                  f"{k['mismatches']} outputs (other checks: {other})")

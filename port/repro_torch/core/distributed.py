@@ -1,5 +1,5 @@
-"""Range-partitioned Bourbon state, host half (the port of
-``repro.core.distributed`` without its mesh).
+"""Range-partitioned Bourbon state and its distributed GET (the port of
+``repro.core.distributed``).
 
 The sorted key space is range-partitioned into shards (the cluster-level
 "FindFiles"); each shard holds its slice plus one PLR model over it, and
@@ -14,8 +14,20 @@ over the whole batch and merging the owner-exclusive hits.  A shard's keys
 all lie in its own key range, so a probe can hit only the shard that owns
 it: one pass with each probe's owning row gives the same answers.  The
 state is built from sorted snapshots (an immutable "level" in paper terms)
-and never mutated in place.  The ``shard_map`` mesh GET
-(``build_dist_get``) is a later slice.
+and never mutated in place.
+
+The mesh GET (:func:`build_dist_get`, the reference's ``shard_map``
+program) spreads the shards over a :class:`~repro_torch.core.mesh.Mesh`,
+one shard row a device:
+
+    all-gather the probe batch (8 B a probe)
+      -> each device answers the whole batch against its one shard row
+         (filter row, ModelLookup, LoadChunk+LocateKey)
+      -> a sum combines the results (each probe has one owner at most)
+
+One process drives every device, as the reference's single controller
+does; the all-gather and the sums are device-to-device copies ordered on
+each device's current stream, so nothing waits for a device.
 """
 
 from __future__ import annotations
@@ -27,10 +39,13 @@ import torch
 
 from repro_torch.kernels import ops
 
+from .mesh import Mesh
 from .plr import greedy_plr_np
 
 __all__ = ["DistStoreConfig", "build_dist_state",
-           "build_dist_state_from_shards", "dist_get_local", "next_pow2"]
+           "build_dist_state_from_shards", "dist_state_specs",
+           "place_dist_state", "build_dist_get", "dist_get_local",
+           "next_pow2"]
 
 KEY_SENTINEL = np.iinfo(np.int64).max
 
@@ -168,3 +183,145 @@ def dist_get_local(state: dict, probes: torch.Tensor, rows: torch.Tensor,
                                     probes, delta)
     hit = found & mine
     return hit, torch.where(hit, state["vptrs"][r, idx.long()], 0)
+
+
+# the nine leaves of the filterless state, in the reference's order
+STATE_KEYS = ("keys", "vptrs", "n", "lo", "hi", "starts", "slopes", "icepts",
+              "nseg")
+
+
+def dist_state_specs(mesh: Mesh, cfg: DistStoreConfig) -> dict:
+    """Shape and dtype stand-ins of the stacked state for a mesh of
+    ``mesh.size`` shards, as ``device="meta"`` tensors (no allocation)."""
+    S = mesh.size
+    cap = cfg.shard_cap(S)
+
+    def meta(shape, dtype):
+        return torch.empty((S,) + shape, dtype=dtype, device="meta")
+
+    return {
+        "keys": meta((cap,), torch.int64), "vptrs": meta((cap,), torch.int64),
+        "n": meta((), torch.int32), "lo": meta((), torch.int64),
+        "hi": meta((), torch.int64),
+        "starts": meta((cfg.seg_cap,), torch.float64),
+        "slopes": meta((cfg.seg_cap,), torch.float64),
+        "icepts": meta((cfg.seg_cap,), torch.float64),
+        "nseg": meta((), torch.int32),
+    }
+
+
+def place_dist_state(state_np: dict, mesh: Mesh) -> list:
+    """Row ``s`` of the stacked numpy state (:func:`build_dist_state`,
+    :func:`build_dist_state_from_shards`) on ``mesh.devices[s]``: one dict
+    of (1, ...) tensors a mesh position, in mesh order.  The filter words
+    ``fbits`` (uint64) are carried as int64 bits, as the kernels take
+    them."""
+    S = mesh.size
+    for k, v in state_np.items():
+        if v.shape[0] != S:
+            raise ValueError(f"state leaf {k!r} has {v.shape[0]} rows, the "
+                             f"mesh {S} devices")
+    out = []
+    for s, dev in enumerate(mesh.devices):
+        row = {}
+        for k, v in state_np.items():
+            v = np.ascontiguousarray(v[s: s + 1])
+            if k == "fbits":
+                v = v.view(np.int64)
+            row[k] = torch.from_numpy(v).to(dev)
+        out.append(row)
+    return out
+
+
+def _to(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """``t`` on ``dev``, ordered on both devices' current streams: a copy
+    between cards runs on the source's stream after the target's pending
+    work and before the target's next, and a host tensor is pinned so that
+    its upload does not wait for the card."""
+    if t.device == dev:
+        return t
+    if t.device.type == "cpu" and dev.type == "cuda" and not t.is_pinned():
+        t = t.pin_memory()
+    return t.to(dev, non_blocking=True)
+
+
+def _sum_on(ts, dev: torch.device) -> torch.Tensor:
+    """The elementwise sum of ``ts`` on ``dev``, in their order."""
+    acc = _to(ts[0], dev)
+    for t in ts[1:]:
+        acc = acc + _to(t, dev)
+    return acc
+
+
+def build_dist_get(mesh: Mesh, cfg: DistStoreConfig,
+                   seg_search: str = "bisect",
+                   combine: str = "reduce_scatter",
+                   state_keys: tuple | None = None, k_hashes: int = 7):
+    """Returns ``dist_get(state, probes) -> (found, vptr)`` over ``mesh``.
+
+    ``state`` is :func:`place_dist_state`'s list, one shard row a mesh
+    device; ``probes`` is one (B,) int64 tensor on any device, B a
+    multiple of ``mesh.size``.  Its slice ``s`` of B / mesh.size probes is
+    the batch's part that originates on device ``s``; every
+    device gathers all slices and answers the whole batch against its row
+    (its filter row first when the state has ``fbits``/``fnw``, then the
+    descent of :func:`dist_get_local` on row 0).  found rides as int8 and
+    the vptrs as where(hit, vptr, 0), then:
+
+    combine="reduce_scatter": each origin's slice is summed onto its
+    device, and the outputs are the per-device slices in mesh order
+    (concatenated, the batch).  combine="allreduce": every device gets the
+    whole sum, and the outputs are one full copy a device.  Each probe has
+    one owner at most, so the sums are 0/1 and the owner's vptr.  Returns
+    ``(found pieces, vptr pieces)``, tuples in mesh order of (bool,
+    int64) tensors; a missed probe's vptr is -1.
+
+    ``seg_search`` "bisect" and "compare" find the same segment, so both
+    run the ``plr_lookup`` kernel.  ``state_keys`` pins the state's
+    layout, as the reference pins its ``shard_map`` specs.  Each launch
+    and copy runs on its device's current stream; nothing waits for a
+    device."""
+    if seg_search not in ("bisect", "compare"):
+        raise ValueError(f"unknown seg_search {seg_search!r}")
+    if combine not in ("reduce_scatter", "allreduce"):
+        raise ValueError(f"unknown combine {combine!r}")
+    keys = tuple(STATE_KEYS if state_keys is None else state_keys)
+    filtered = "fbits" in keys
+    devs = mesh.devices
+    S = mesh.size
+
+    def dist_get(state, probes):
+        if len(state) != S or any(tuple(sorted(row)) != tuple(sorted(keys))
+                                  for row in state):
+            raise ValueError(f"state must be {S} rows with leaves {keys}")
+        B = probes.shape[0]
+        if B % S:
+            raise ValueError(f"{B} probes do not split over {S} devices")
+        m = B // S
+        if probes.device.type == "cpu" and any(d.type == "cuda"
+                                               for d in devs):
+            probes = probes.pin_memory()       # one pinned upload a slice
+        parts = [_to(probes[s * m: (s + 1) * m], d)
+                 for s, d in enumerate(devs)]
+        found, vsum = [], []
+        for row, dev in zip(state, devs):
+            # the all-gather: the whole padded batch on this device
+            p = torch.cat([_to(x, dev) for x in parts])
+            maybe = (ops.bloom_probe_stack(row["fbits"], row["fnw"], p,
+                                           k_hashes) if filtered else None)
+            rows = torch.zeros(p.shape[0], dtype=torch.int32, device=dev)
+            hit, vptr = dist_get_local(row, p, rows, cfg.delta, maybe)
+            found.append(hit.to(torch.int8))
+            vsum.append(torch.where(hit, vptr, 0))
+        if combine == "reduce_scatter":
+            outs = [(_sum_on([f[o * m: (o + 1) * m] for f in found], dev),
+                     _sum_on([v[o * m: (o + 1) * m] for v in vsum], dev))
+                    for o, dev in enumerate(devs)]
+        else:
+            outs = [(_sum_on(found, dev), _sum_on(vsum, dev))
+                    for dev in devs]
+        f_out = tuple(f > 0 for f, _ in outs)
+        v_out = tuple(torch.where(f > 0, v, -1) for f, v in outs)
+        return f_out, v_out
+
+    return dist_get

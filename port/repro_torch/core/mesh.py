@@ -1,0 +1,82 @@
+"""The device mesh of the distributed GET (what the port needs of
+``jax.sharding.Mesh`` and ``repro.core.jaxcompat.make_mesh``).
+
+A :class:`Mesh` is a tuple of devices laid out over named axes.  The
+distributed GET reads it flattened, in row-major order, as the reference
+reads ``P(axes)`` with a tuple of axes: device ``s`` of the flattened
+mesh holds shard row ``s`` and the ``s``-th slice of every probe batch.
+One process drives every device of the mesh; the collectives are
+stream-ordered device-to-device copies (``core.distributed``).
+
+A device may appear more than once.  A mesh of ``cpu`` repeated, or of
+one card repeated, stands in for the reference's forced host devices
+(``--xla_force_host_platform_device_count``): the same program runs, one
+shard row a mesh position, on fewer physical devices.
+
+``repro.core.jaxcompat`` has no counterpart: it papers over JAX releases
+that moved ``make_mesh``, ``shard_map`` and ``set_mesh``.  PyTorch has no
+ambient mesh to set (every call takes its mesh explicitly) and no
+``shard_map`` to find, so nothing here depends on the installed version.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+__all__ = ["Mesh", "make_mesh"]
+
+
+def _indexed(d: torch.device) -> torch.device:
+    """A CUDA device named without an index is the current one."""
+    if d.type == "cuda" and d.index is None and torch.cuda.is_available():
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """``devices`` flattened in row-major order over ``shape``, one axis
+    name per dimension."""
+    devices: tuple
+    axis_names: tuple
+    shape: tuple
+
+    def __post_init__(self) -> None:
+        devs = tuple(_indexed(torch.device(d)) for d in self.devices)
+        object.__setattr__(self, "devices", devs)
+        object.__setattr__(self, "axis_names", tuple(self.axis_names))
+        object.__setattr__(self, "shape", tuple(int(n) for n in self.shape))
+        if len(self.shape) != len(self.axis_names):
+            raise ValueError(f"mesh shape {self.shape} has "
+                             f"{len(self.shape)} axes, names "
+                             f"{self.axis_names} {len(self.axis_names)}")
+        if math.prod(self.shape) != len(devs) or not devs:
+            raise ValueError(f"mesh shape {self.shape} needs "
+                             f"{math.prod(self.shape)} devices, got "
+                             f"{len(devs)}")
+        for d in devs:
+            if d.type not in ("cpu", "cuda"):
+                raise ValueError(f"unsupported mesh device {d}")
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+
+def make_mesh(shape, axis_names, devices=None) -> Mesh:
+    """A mesh of ``shape`` over ``devices`` (names or ``torch.device``s,
+    row-major; repeats allowed).  Without ``devices`` it takes the first
+    ``prod(shape)`` distinct CUDA devices, and raises if there are fewer."""
+    shape = tuple(shape)
+    if devices is None:
+        need = math.prod(shape)
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have < need:
+            raise RuntimeError(f"a mesh of shape {shape} needs {need} CUDA "
+                               f"devices, {have} available (pass devices= "
+                               "to repeat a device)")
+        devices = [torch.device("cuda", i) for i in range(need)]
+    return Mesh(tuple(devices), tuple(axis_names), shape)

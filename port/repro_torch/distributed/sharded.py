@@ -26,12 +26,13 @@ process start):
   contract (§4.3 applied cluster-wide).
 
 GETs check the owning shard's memtable first (newest data wins,
-tombstones shadow), then answer the rest on the engine's device: one
-filter-plane probe of every shard's bloom row (``ops.bloom_probe_stack``,
-an (S, B) mask) and the shard descent ``core.distributed.dist_get_local``
-with each probe's owning shard row — the reference's host-fallback GET,
-which runs when there is no mesh, as on one card.  The ``shard_map`` mesh
-GET is a later slice: ``mesh`` other than None or "auto" raises.
+tombstones shadow), then answer the rest through
+``core.distributed.build_dist_get`` when the store has a mesh of one
+device a shard, or otherwise on the engine's device: one filter-plane
+probe of every shard's bloom row (``ops.bloom_probe_stack``, an (S, B)
+mask) and the shard descent ``core.distributed.dist_get_local`` with each
+probe's owning shard row — the reference's host-fallback GET.  Both paths
+share the masked-ownership semantics, so results are identical.
 
 This is the port of ``repro.distributed.sharded``; ``SHARDS.json`` and
 every shard directory are the reference's format, so a sharded store
@@ -49,11 +50,14 @@ import torch
 
 from repro_torch.core.cba import CBAConfig, MaintenanceConfig
 from repro_torch.core.clock import CostModel
-from repro_torch.core.distributed import (build_dist_state_from_shards,
-                                          dist_get_local, next_pow2)
+from repro_torch.core.distributed import (DistStoreConfig, build_dist_get,
+                                          build_dist_state_from_shards,
+                                          dist_get_local, next_pow2,
+                                          place_dist_state)
 from repro_torch.core.engine import EngineConfig
 from repro_torch.core.filters import FilterConfig, build_level_filter
 from repro_torch.core.lsm import LSMConfig
+from repro_torch.core.mesh import Mesh, make_mesh
 from repro_torch.core.plr import greedy_plr_np
 from repro_torch.core.store import BourbonStore, StoreConfig
 from repro_torch.io import ValueFetch, wait_all
@@ -164,8 +168,10 @@ class ShardPendingBatch:
     vptr: np.ndarray               # (B,) int64, memtable hits prefilled
     miss: np.ndarray               # (B,) bool — answered by the snapshot
     n_miss: int
-    f_dev: object                  # device (pad,) bool tensor, or None
-    v_dev: object                  # device (pad,) int64 tensor, or None
+    # device (pad,) bool / int64 tensors, their per-device pieces in mesh
+    # order (a tuple) with a mesh, or None
+    f_dev: object
+    v_dev: object
     epochs: tuple                  # pinned per-shard epoch vector
     state_epoch: int               # device-state generation at dispatch
     with_values: bool
@@ -176,16 +182,19 @@ class ShardPendingBatch:
 
 
 class ShardedStore:
-    """Range-partitioned Bourbon store: durable shards, one stacked device
-    state, GETs through the filter-plane and descent kernels."""
+    """Range-partitioned Bourbon store: durable shards, GETs through the
+    filter-plane and descent kernels — over a mesh of one device a shard,
+    or on the engine's device with the shards stacked."""
 
     def __init__(self, path: str, splits: tuple, shards: list,
-                 delta: int) -> None:
+                 delta: int, mesh: Mesh | None = None) -> None:
         self.path = path
         self.shards = shards
         self.delta = delta
         self._splits = np.asarray(splits, np.int64)
         self.device = shards[0].engine.device
+        self._mesh = mesh
+        self._get_fn = None
         self._snaps = [None] * len(shards)
         self._snap_models = [None] * len(shards)
         self._snap_filters = [None] * len(shards)
@@ -220,16 +229,18 @@ class ShardedStore:
         geometry, every shard recovers through the engine's normal
         protocol (WAL into memtable, sstables with their persisted file
         models, level models via the MANIFEST) — rejecting a mismatched
-        shard count.  ``mesh`` must be None or "auto", which on one card
-        means no mesh, as in the reference on one device; the shard_map
-        GET over several cards is a later slice.  ``device`` names the
-        engine device and overrides ``store_cfg.device``; a config read
-        back from ``SHARDS.json`` (which does not store the device) takes
-        the default, the card."""
-        if mesh not in (None, "auto"):
-            raise NotImplementedError("the shard_map mesh GET over several "
-                                      "cards (torch.distributed) is ported "
-                                      "in a later slice")
+        shard count.  ``mesh`` is a :class:`Mesh` of one device a shard
+        for the mesh GET, None for the stacked GET on the engine's device,
+        or "auto": a mesh of distinct devices when the engine device's
+        type offers at least ``n_shards`` of them (the CPU offers one),
+        else none; its first device is the engine's, and the cards after
+        it follow in index order, wrapping to cuda:0.  ``device`` names the engine device and overrides
+        ``store_cfg.device``; a config read back from ``SHARDS.json``
+        (which does not store the device) takes the default, the card."""
+        if not (mesh is None or isinstance(mesh, Mesh)
+                or (isinstance(mesh, str) and mesh == "auto")):
+            raise TypeError(f"mesh must be a Mesh, None or 'auto', got "
+                            f"{type(mesh).__name__}")
         path = str(path)
         os.makedirs(path, exist_ok=True)
         topo_path = os.path.join(path, TOPOLOGY)
@@ -286,6 +297,9 @@ class ShardedStore:
                 fsync_dir(path)
         if device is not None and device != store_cfg.device:
             store_cfg = dataclasses.replace(store_cfg, device=device)
+        if isinstance(mesh, Mesh) and mesh.size != n_shards:
+            raise ValueError(f"a mesh of {mesh.size} devices for "
+                             f"{n_shards} shards (one device a shard)")
         shards: list[BourbonStore] = []
         try:
             for i in range(n_shards):
@@ -295,7 +309,19 @@ class ShardedStore:
             for st in shards:   # release the directory locks already taken
                 st.close()
             raise
-        return cls(path, splits, shards, delta)
+        if isinstance(mesh, str):      # "auto"
+            dev = shards[0].engine.device
+            have = torch.cuda.device_count() if dev.type == "cuda" else 1
+            mesh = None
+            if have >= n_shards:
+                devs = [dev] * n_shards
+                if dev.type == "cuda":     # from the engine's card, wrapping
+                    first = (dev.index if dev.index is not None
+                             else torch.cuda.current_device())
+                    devs = [torch.device("cuda", (first + i) % have)
+                            for i in range(n_shards)]
+                mesh = make_mesh((n_shards,), ("shard",), devs)
+        return cls(path, splits, shards, delta, mesh)
 
     def close(self) -> None:
         for st in self.shards:
@@ -307,7 +333,7 @@ class ShardedStore:
 
     @property
     def uses_shard_map(self) -> bool:
-        return False
+        return self._mesh is not None
 
     # ----------------------------------------------------------------- write
     def shard_of(self, keys: np.ndarray) -> np.ndarray:
@@ -413,13 +439,15 @@ class ShardedStore:
         # moments a shard's memtable rolls into a new immutable snapshot
         return tuple(len(st.tree.events) for st in self.shards)
 
-    def device_state(self) -> dict:
-        """The stacked (n_shards, ...) device state.  Snapshots AND their
-        fitted PLR models are cached per shard epoch, so a refresh merges
-        and refits only the shards whose memtable actually rolled.  The
-        restack/upload still copies every row (O(total records) bytes per
-        refresh); updating only the changed device row is the next
-        optimization if flush-heavy workloads make it show up."""
+    def device_state(self):
+        """The stacked (n_shards, ...) device state, or with a mesh its
+        rows placed one a mesh device (``place_dist_state``: a list in
+        mesh order).  Snapshots AND their fitted PLR models are cached per
+        shard epoch, so a refresh merges and refits only the shards whose
+        memtable actually rolled.  The restack/upload still copies every
+        row (O(total records) bytes per refresh); updating only the
+        changed device row is the next optimization if flush-heavy
+        workloads make it show up."""
         epochs = self._shard_epochs()
         if self._state is None or epochs != self._state_epochs:
             fc = self.shards[0].cfg.filters
@@ -442,10 +470,13 @@ class ShardedStore:
             state_np = build_dist_state_from_shards(
                 self._snaps, self.delta, models=self._snap_models,
                 filters=self._snap_filters if fc.enabled else None)
-            if "fbits" in state_np:   # the uint64 words as int64 bits
-                state_np["fbits"] = state_np["fbits"].view(np.int64)
-            self._state = {k: torch.from_numpy(v).to(self.device)
-                           for k, v in state_np.items()}
+            if self._mesh is not None:
+                self._state = place_dist_state(state_np, self._mesh)
+            else:
+                if "fbits" in state_np:   # the uint64 words as int64 bits
+                    state_np["fbits"] = state_np["fbits"].view(np.int64)
+                self._state = {k: torch.from_numpy(v).to(self.device)
+                               for k, v in state_np.items()}
             self._state_epochs = epochs
             self.state_epoch += 1
         return self._state
@@ -456,14 +487,31 @@ class ShardedStore:
         (found, vptr) tensors WITHOUT synchronizing, so the caller overlaps
         admission of the next batch with this one's compute.  The probe
         count is padded to a power of two (>= 64) with pad lanes no shard
-        holds; slice ``[:n]`` at resolve.  One filter-plane probe covers
-        every shard row, then the descent runs on each probe's owning row
-        (misses carry vptr 0, merged to -1 at resolve)."""
+        holds; slice ``[:n]`` at resolve.  With a mesh, the pad is rounded
+        up to a multiple of the shard count and the mesh GET returns its
+        per-device pieces in mesh order (the filter probe runs inside it,
+        untimed, as in the reference).  Without one, one filter-plane
+        probe covers every shard row, then the descent runs on each
+        probe's owning row (misses carry vptr 0, merged to -1 at
+        resolve)."""
         state = self.device_state()
         n = probes.shape[0]
         pad = next_pow2(max(n, 64))
+        if self._mesh is not None:
+            pad = -(-pad // self.n_shards) * self.n_shards
         buf = np.full(pad, _PAD_PROBE, np.int64)
         buf[:n] = probes
+        if self._mesh is not None:
+            if self._get_fn is None:
+                cfg = DistStoreConfig(n_keys=0, probe_batch=0,
+                                      delta=self.delta)
+                # state layout pinned to what device_state() built: with
+                # filters enabled it carries fbits/fnw rows the mesh GET
+                # probes on each device before its descent
+                self._get_fn = build_dist_get(
+                    self._mesh, cfg, state_keys=tuple(sorted(state[0])),
+                    k_hashes=self.shards[0].cfg.lsm.bloom_k)
+            return self._get_fn(state, torch.from_numpy(buf))
         upload = self.shards[0].engine._upload   # pinned, non-blocking
         buf_dev = upload(buf)
         rows = upload(self.shard_of(buf))
@@ -547,7 +595,16 @@ class ShardedStore:
         ct = self._ct
 
         def task():
-            if pb.f_dev is not None:
+            if isinstance(pb.v_dev, tuple):
+                # the mesh GET's pieces in mesh order, one device-to-host
+                # copy a device: a miss carries vptr -1, and the tombstone
+                # mask below keeps exactly vptr >= 0, so the vptrs alone
+                # give both answers
+                v2 = np.concatenate([v.cpu().numpy()
+                                     for v in pb.v_dev])[:pb.n_miss]
+                found[pb.miss] = v2 >= 0
+                vptr[pb.miss] = v2
+            elif pb.f_dev is not None:
                 f2 = pb.f_dev.cpu().numpy()[:pb.n_miss]
                 v2 = pb.v_dev.cpu().numpy()[:pb.n_miss]
                 found[pb.miss] = f2

@@ -3,11 +3,12 @@
 
 A wrapper checks device, dtype, shape and contiguity, then either runs the
 plain PyTorch version (``kernels.ref``) because its tensors lie on the CPU,
-or launches the CUDA kernel on ``torch.cuda.current_stream()`` for CUDA
-tensors, allocating outputs with ``torch.empty``.  There is no fallback: a
-CUDA call that cannot launch raises.  ``launches[name]`` counts kernel
-launches only (plain-version calls do not count), so a run can show that
-its main path went through the kernels.
+or launches the CUDA kernel for CUDA tensors, on the current stream of the
+card that holds them (whichever card is current), allocating outputs with
+``torch.empty`` there.  There is no fallback: a CUDA call that cannot
+launch raises.  ``launches[name]`` counts kernel launches only
+(plain-version calls do not count), so a run can show that its main path
+went through the kernels.
 
 Layouts (F files of a level, B probes, ``rows`` (B,) int32 = file row):
 
@@ -70,9 +71,12 @@ def _check_rows(rows: torch.Tensor, probes: torch.Tensor,
     return dev
 
 
-def _launch(name: str, fn: str, *args) -> None:
-    err = getattr(build.load(), fn)(*args,
-                                    torch.cuda.current_stream().cuda_stream)
+def _launch(name: str, fn: str, dev: torch.device, *args) -> None:
+    """Launch C entry point ``fn`` on ``dev`` (the probes' card), on that
+    card's current stream, whichever card is current."""
+    with torch.cuda.device(dev):
+        err = getattr(build.load(), fn)(
+            *args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     launches[name] += 1
@@ -92,7 +96,7 @@ def plr_lookup(starts, slopes, icepts, nseg, n, rows, probes) -> torch.Tensor:
     B = probes.shape[0]
     pos = torch.empty(B, dtype=torch.int32, device=dev)
     if B:
-        _launch("plr_lookup", "plr_lookup_rows", starts.data_ptr(),
+        _launch("plr_lookup", "plr_lookup_rows", dev, starts.data_ptr(),
                 slopes.data_ptr(), icepts.data_ptr(), nseg.data_ptr(),
                 n.data_ptr(), rows.data_ptr(), probes.data_ptr(),
                 pos.data_ptr(), B, S)
@@ -113,8 +117,8 @@ def bounded_search(keys, n, rows, pos, probes, delta: int):
     idx = torch.empty(B, dtype=torch.int32, device=dev)
     found = torch.empty(B, dtype=torch.bool, device=dev)
     if B:
-        _launch("bounded_search", "bounded_search_rows", keys.data_ptr(),
-                n.data_ptr(), rows.data_ptr(), pos.data_ptr(),
+        _launch("bounded_search", "bounded_search_rows", dev,
+                keys.data_ptr(), n.data_ptr(), rows.data_ptr(), pos.data_ptr(),
                 probes.data_ptr(), idx.data_ptr(), found.data_ptr(), B, C,
                 int(delta))
     return idx, found
@@ -130,7 +134,7 @@ def bloom_probe(bits, nw, rows, probes, k_hashes: int) -> torch.Tensor:
     B = probes.shape[0]
     maybe = torch.empty(B, dtype=torch.bool, device=dev)
     if B:
-        _launch("bloom_probe", "bloom_probe_rows", bits.data_ptr(),
+        _launch("bloom_probe", "bloom_probe_rows", dev, bits.data_ptr(),
                 nw.data_ptr(), rows.data_ptr(), probes.data_ptr(),
                 maybe.data_ptr(), B, W, int(k_hashes))
     return maybe
@@ -152,10 +156,11 @@ def sstable_search(fences, keys, n_blocks, n, rows, probes,
     idx = torch.empty(B, dtype=torch.int32, device=dev)
     found = torch.empty(B, dtype=torch.bool, device=dev)
     if B:
-        _launch("sstable_search", "sstable_search_rows", fences.data_ptr(),
-                keys.data_ptr(), n_blocks.data_ptr(), n.data_ptr(),
-                rows.data_ptr(), probes.data_ptr(), idx.data_ptr(),
-                found.data_ptr(), B, fences.shape[1], C, int(block_records))
+        _launch("sstable_search", "sstable_search_rows", dev,
+                fences.data_ptr(), keys.data_ptr(), n_blocks.data_ptr(),
+                n.data_ptr(), rows.data_ptr(), probes.data_ptr(),
+                idx.data_ptr(), found.data_ptr(), B, fences.shape[1], C,
+                int(block_records))
     return idx, found
 
 
@@ -177,7 +182,7 @@ def bloom_probe_stack(bits, nw, probes, k_hashes: int) -> torch.Tensor:
     B = probes.shape[0]
     maybe = torch.empty((L, B), dtype=torch.bool, device=dev)
     if L and B:
-        _launch("bloom_probe_stack", "bloom_probe_stack", bits.data_ptr(),
-                nw.data_ptr(), probes.data_ptr(), maybe.data_ptr(), L, B, W,
-                int(k_hashes))
+        _launch("bloom_probe_stack", "bloom_probe_stack", dev,
+                bits.data_ptr(), nw.data_ptr(), probes.data_ptr(),
+                maybe.data_ptr(), L, B, W, int(k_hashes))
     return maybe

@@ -21,8 +21,12 @@ first, in the middle and last, a one-word filter, rows whose nw is below
 the padded W; test_torch_filter_plane.py holds them to the JAX package)
 and ragged B of 1, 63 and 4096 + 37.  ``greedy_plr_torch``'s loop runs
 on the card with synchronizing calls made errors, and fits the segments
-of ``greedy_plr_np``.  The last tests drive whole stores — file- and
-level-granularity, and the sharded store — on the card and on the CPU."""
+of ``greedy_plr_np``.  The store tests drive whole stores — file- and
+level-granularity, and the sharded store — on the card and on the CPU.
+The mesh tests run the mesh GET on cuda:0 four times against the CPU four
+times, and (with two cards or more) on two distinct cards while cuda:0 is
+current, so that each kernel must launch on its own tensors' card; the
+last checks that ``mesh="auto"`` starts its mesh at the engine's card."""
 
 import functools
 import os
@@ -588,3 +592,183 @@ def test_cuda_store_matches_cpu_store():
                 for lvl in b.tree.levels])
     assert ((a.lookups_model_path, a.lookups_baseline_path)
             == (b.lookups_model_path, b.lookups_baseline_path))
+
+
+def _mesh_case(n_shards, filters):
+    """A stacked numpy state of 1 << 14 "ar" keys over ``n_shards``
+    equal-count shards (each shard's bloom row in ``fbits``/``fnw`` with
+    ``filters``), and 4096 probes: present keys, absent neighbours, pad
+    probes and KEY_SENTINEL."""
+    from repro_torch.core.distributed import (DistStoreConfig,
+                                              build_dist_state,
+                                              build_dist_state_from_shards)
+    from repro_torch.core.filters import build_level_filter
+    keys = make_dataset("ar", 1 << 14, seed=11)
+    vptrs = np.arange(keys.shape[0], dtype=np.int64)
+    cfg = DistStoreConfig(n_keys=keys.shape[0], probe_batch=4096)
+    if filters:
+        per = -(-keys.shape[0] // n_shards)
+        snaps = [(keys[s * per: (s + 1) * per], vptrs[s * per: (s + 1) * per])
+                 for s in range(n_shards)]
+        state = build_dist_state_from_shards(
+            snaps, cfg.delta,
+            filters=[build_level_filter(k, 10, K) for k, _ in snaps])
+    else:
+        state = build_dist_state(keys, vptrs, n_shards, cfg)
+    rng = np.random.default_rng(12)
+    probes = np.concatenate([rng.choice(keys, 2048),
+                             rng.choice(keys, 1024) + 1,
+                             rng.integers(int(keys[0]), int(keys[-1]), 1016,
+                                          dtype=np.int64),
+                             [SENTINEL] * 4 + [PAD_PROBE] * 4])
+    return state, probes.astype(np.int64), cfg
+
+
+def _mesh_get(mesh, state, probes, cfg, combine):
+    """The mesh GET's (found, vptr) pieces, copied to the host."""
+    from repro_torch.core.distributed import build_dist_get, place_dist_state
+    fn = build_dist_get(mesh, cfg, combine=combine, state_keys=tuple(state),
+                        k_hashes=K)
+    f, v = fn(place_dist_state(state, mesh), torch.from_numpy(probes))
+    for x, dev in zip(f + v, mesh.devices * 2):
+        assert x.device == dev
+    return [x.cpu() for x in f], [x.cpu() for x in v]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("filters", [False, True], ids=["nofilter", "filter"])
+@pytest.mark.parametrize("combine", ["reduce_scatter", "allreduce"])
+def test_mesh_get_on_one_card_matches_cpu(combine, filters):
+    """The mesh GET on cuda:0 four times equals the same GET on the CPU
+    four times, piece by piece; each device runs the kernels once."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from repro_torch.core.mesh import make_mesh
+    state, probes, cfg = _mesh_case(4, filters)
+    ops.reset_launches()
+    got = _mesh_get(make_mesh((4,), ("shard",), ["cuda:0"] * 4), state,
+                    probes, cfg, combine)
+    torch.cuda.synchronize()
+    assert ops.launches["plr_lookup"] == ops.launches["bounded_search"] == 4
+    assert ops.launches["bloom_probe_stack"] == (4 if filters else 0)
+    want = _mesh_get(make_mesh((4,), ("shard",), ["cpu"] * 4), state,
+                     probes, cfg, combine)
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(g, w)
+    found = (torch.cat(got[0]) if combine == "reduce_scatter"
+             else got[0][0]).numpy()
+    assert found[:2048].all() and not found[-8:].any()
+
+
+@pytest.mark.gpu
+def test_mesh_get_on_two_cards_launches_on_each_card():
+    """A mesh of two distinct cards, driven while cuda:0 is current: each
+    kernel launches on the card that holds its tensors, on that card's
+    stream, and the answers equal the CPU's.  A kernel wrapper called
+    from cuda:0 on probes that cuda:1's stream writes only after a long
+    sleep must wait for them: launched on cuda:0's stream, it would read
+    the pad probes that were there before."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from repro_torch.core.mesh import make_mesh
+    state, probes, cfg = _mesh_case(2, True)
+    with torch.cuda.device(0):
+        for combine in ("reduce_scatter", "allreduce"):
+            ops.reset_launches()
+            got = _mesh_get(make_mesh((2,), ("shard",)), state, probes, cfg,
+                            combine)
+            assert ops.launches["bloom_probe_stack"] == 2
+            want = _mesh_get(make_mesh((2,), ("shard",), ["cpu"] * 2), state,
+                             probes, cfg, combine)
+            for g, w in zip(got[0] + got[1], want[0] + want[1]):
+                assert torch.equal(g, w)
+        t = {k: torch.from_numpy(np.ascontiguousarray(state[k][1:2]))
+             for k in ("starts", "slopes", "icepts", "nseg", "n")}
+        p = torch.from_numpy(probes)
+        rows = torch.zeros(p.shape[0], dtype=torch.int32)
+        want = ref.plr_lookup_rows_ref(*t.values(), rows, p)
+        dev = torch.device("cuda", 1)
+        t1 = [x.to(dev) for x in t.values()]
+        src, late = p.to(dev), torch.full_like(p, PAD_PROBE, device=dev)
+        torch.cuda.synchronize(dev)
+        with torch.cuda.device(dev):
+            torch.cuda._sleep(int(2e8))     # cuda:1's stream busy ~0.1 s
+            late.copy_(src)                 # the probes land after it
+        got = ops.plr_lookup(*t1, rows.to(dev), late)
+        assert got.device == dev and torch.cuda.current_device() == 0
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_mesh_store_on_distinct_cards_matches_cpu(tmp_path):
+    """A sharded store on a mesh of distinct cards (up to four, one a
+    shard) answers as the same store on the CPU repeated, through writes,
+    a flush and the epoch refresh; each mesh GET launches each of the
+    three kernels once a card."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from repro_torch.core import LSMConfig, StoreConfig
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.distributed import ShardedConfig, ShardedStore
+
+    n = min(torch.cuda.device_count(), 4)
+    keys = make_dataset("ar", 1 << 14, seed=13)
+    rng = np.random.default_rng(14)
+    perm = rng.permutation(keys)
+    bounds = tuple(int(b) for b in np.quantile(keys, np.arange(1, n) / n))
+    probes = np.concatenate([rng.choice(keys, 3000),
+                             rng.choice(keys, 1000) + 1])
+    outs = []
+    for device, mesh in (("cpu", make_mesh((n,), ("shard",), ["cpu"] * n)),
+                         ("cuda", make_mesh((n,), ("shard",)))):
+        st = ShardedStore.open(
+            str(tmp_path / device), ShardedConfig(n, boundaries=bounds),
+            StoreConfig(granularity="level", policy="always", value_size=16,
+                        lsm=LSMConfig(memtable_cap=1 << 10, file_cap=1 << 11,
+                                      l1_cap_records=1 << 13)),
+            device=device, mesh=mesh)
+        assert st.uses_shard_map
+        st.put_batch(perm[:12000])
+        res = [st.get_batch(probes, with_values=True)]
+        st.put_batch(perm[12000:])
+        st.delete_batch(perm[:500])
+        st.flush_all()
+        ops.reset_launches()
+        res.append(st.get_batch(probes, with_values=True))
+        launched = dict(ops.launches)
+        outs.append((res, launched))
+        st.close()
+    (a, _), (b, launched) = outs
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x[0], y[0])
+        np.testing.assert_array_equal(x[1], y[1])
+    for name in ("bloom_probe_stack", "plr_lookup", "bounded_search"):
+        assert launched[name] == n, name
+
+
+@pytest.mark.gpu
+def test_auto_mesh_starts_at_engine_card(tmp_path):
+    """``mesh="auto"`` on an engine placed on cuda:1 builds its mesh from
+    that card: a one-shard store serves its GETs from state on cuda:1, and
+    a two-shard store takes cuda:1 and the card after it, wrapping to
+    cuda:0."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from repro_torch.core import StoreConfig
+    from repro_torch.distributed import ShardedConfig, ShardedStore
+
+    have = torch.cuda.device_count()
+    keys = make_dataset("ar", 1 << 12, seed=15)
+    for n in (1, 2):
+        st = ShardedStore.open(
+            str(tmp_path / f"s{n}"), ShardedConfig(n),
+            StoreConfig(granularity="level", policy="always", value_size=8),
+            device="cuda:1", mesh="auto")
+        want = tuple(torch.device("cuda", (1 + i) % have) for i in range(n))
+        assert st.uses_shard_map and st._mesh.devices == want
+        st.put_batch(keys)
+        st.flush_all()
+        found, _ = st.get_batch(np.concatenate([keys[:100], keys[:100] + 1]))
+        assert found[:100].all()
+        assert [r["keys"].device for r in st.device_state()] == list(want)
+        st.close()

@@ -328,15 +328,19 @@ def test_io_pool_sizes_give_identical_results(tmp_path, workers):
         ps.close()
 
 
-def test_mesh_and_obs_are_later_slices(tmp_path):
-    """The shard_map mesh GET is a later slice and raises; the obs plane is
-    ported: the attached fleet answers and reports as the reference's
-    does (every counter and gauge equal, per-shard labels and the fleet
-    aggregate), and detaching restores the null handles."""
+def test_mesh_argument_and_obs(tmp_path):
+    """``mesh`` takes a Mesh, None or "auto": any other object raises
+    before the directory is touched (the mesh GET itself is held in
+    test_torch_mesh.py).  The obs plane: the attached fleet answers and
+    reports as the reference's does (every counter and gauge equal,
+    per-shard labels and the fleet aggregate), and detaching restores the
+    null handles."""
     import _torch_serving as common
-    with pytest.raises(NotImplementedError, match="later slice"):
-        psh.ShardedStore.open(str(tmp_path / "m"), mesh=object(),
-                              device="cpu")
+    for bad in (object(), "mesh", ("cpu",) * 2):
+        with pytest.raises((TypeError, ValueError), match="mesh"):
+            psh.ShardedStore.open(str(tmp_path / "m"), mesh=bad,
+                                  device="cpu")
+    assert not (tmp_path / "m").exists()
     rng = np.random.default_rng(7)
     keys = rng.permutation(np.arange(1, 6001, dtype=np.int64) * 5)
     sync_file_ids()
