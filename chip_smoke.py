@@ -57,6 +57,22 @@
         just after: the three kernels must launch once a mesh device a
         mesh GET.  Then they are held against their plain versions at G's
         one-row shapes, on every mesh device's shard row.
+   After the timed batches of C, D, E and G, 4 of the phase's batches
+   replay through its dispatch half (``BourbonStore.dispatch_get`` in C,
+   ``ShardedStore.dispatch_get`` in D and G, and in E shard 0's
+   ``dispatch_get`` and ``LookupEngine.lookup_async`` with the device
+   filter probe), one at a time in this thread with no I/O-pool worker
+   alive, each under ``torch.cuda.set_sync_debug_mode("warn")`` with the
+   warnings recorded; each resolves after the mode is reset and every
+   answer is checked.  Before the first replayed batch of each store's
+   dispatch the store forgets its device state, so that batch restacks
+   and uploads it as the first dispatch after a structure change does;
+   the other three are steady-state batches, each behind 200 ms of device
+   sleep that it must return ahead of.  A replayed batch that
+   synchronizes or waits fails the run, naming the call.  The
+   ``hot_syncs`` line gives per phase the syncs the card saw and the
+   port's HOTSYNC findings (``repro_torch.analysis``) in the functions
+   those halves ran, with how many of those functions the rule checks.
 4. Holds each kernel against its plain PyTorch version on the same CUDA
    tensors at the live state's shapes (4096 probes; the stack probe at
    both of its live shapes; ``plr_lookup`` also at phase D's stacked shard
@@ -77,15 +93,17 @@
    lanes a (row, probe) (1, 2, 4, 8, 8, 4, 2, 1) at both of its shapes.
    Every build is held to the plain version first.
 
-Output: one line per phase, a ``{"kernels": [...]}`` JSON line, the card's
-name and power limit from nvidia-smi, and last the ``{"ok": true, ...}``
-JSON line.  Exits non-zero, printing no result, when there is no CUDA
-device, when the port's package is missing, or on the first wrong answer.
+Output: one line per phase, a ``{"hot_syncs": {...}}`` JSON line, a
+``{"kernels": [...]}`` JSON line, the card's name and power limit from
+nvidia-smi, and last the ``{"ok": true, ...}`` JSON line.  Exits
+non-zero, printing no result, when there is no CUDA device, when the
+port's package is missing, or on the first wrong answer.
 """
 
 from __future__ import annotations
 
 import argparse
+import ast
 import gc
 import json
 import os
@@ -94,6 +112,8 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
+import warnings
 
 import numpy as np
 
@@ -107,6 +127,10 @@ WIDE_DELTA = 40                # window wider than one warp's group
 WIDE_K = 12                    # more hashes than one group of 8 lanes
 GROUPS = (8, 16, 32)           # lanes per probe of the group kernels, timed
 STACK_GROUPS = (1, 2, 4, 8)    # lanes per (row, probe) of the stack probe
+SYNC_REPLAYS = 4               # batches replayed through a dispatch half
+DEVICE_HOLD_MS = 200.0         # device sleep queued ahead of each replay
+HERE = os.path.dirname(os.path.abspath(__file__))
+PORT_SRC = os.path.join(HERE, "port", "repro_torch")
 
 
 def fail(msg: str) -> None:
@@ -119,6 +143,238 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+# ----------------------------------------------------------------------------
+# the dispatch halves under torch's sync debug mode
+# ----------------------------------------------------------------------------
+
+class SyncWatch:
+    """While installed: torch's sync debug mode at "warn" (on the card),
+    each synchronizing CUDA call recorded with the innermost frame of the
+    port that made it, and the port's functions that ran (a profile
+    hook).  The mode is process-wide: the caller runs nothing on another
+    thread meanwhile."""
+
+    def __init__(self, on_card: bool):
+        self.on_card = on_card
+        self.syncs, self.funcs = [], set()
+
+    def __enter__(self):
+        import torch
+        self._caught = warnings.catch_warnings()
+        self._caught.__enter__()
+        warnings.simplefilter("always")
+        warnings.showwarning = self._show
+        sys.setprofile(self._called)
+        if self.on_card:
+            torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        if self.on_card:
+            torch.cuda.set_sync_debug_mode("default")
+        sys.setprofile(None)
+        self._caught.__exit__(*exc)
+
+    def _called(self, frame, event, arg):
+        code = frame.f_code
+        if event == "call" and code.co_filename.startswith(PORT_SRC):
+            self.funcs.add((os.path.relpath(code.co_filename, HERE),
+                            code.co_qualname.replace(".<locals>", "")))
+
+    def _show(self, message, category, filename, lineno, file=None,
+              line=None):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return                 # e.g. the mode's own prototype notice
+        port = [f for f in traceback.extract_stack()[:-1]
+                if f.filename.startswith(PORT_SRC)]
+        self.syncs.append(
+            f"{os.path.relpath(port[-1].filename, HERE)}:{port[-1].lineno} "
+            f"({port[-1].name}): {port[-1].line}" if port
+            else f"{filename}:{lineno}")
+
+
+def store_token(store) -> tuple:
+    """What a ``BourbonStore``'s dispatch reads as device state: the
+    engine's stacked levels, level models and filter stack, and the value
+    log's device copy.  A dispatch that changes it rebuilt state."""
+    eng = store.engine
+    return (tuple(map(id, eng._state_cache.values())),
+            tuple(map(id, eng._lm_cache.values())), id(eng._filter_cache),
+            id(getattr(store.vlog, "_device", None)))
+
+
+def drop_device_state(store) -> None:
+    """Forget what a store's dispatch uploaded (a ``BourbonStore``'s
+    stacked levels, level models, filter stack and value-log copy; a
+    ``ShardedStore``'s stacked or mesh-placed rows), so that its next
+    dispatch restacks and uploads all of it, as the first dispatch after a
+    structure change does."""
+    if hasattr(store, "shards"):
+        store._state = None
+        return
+    eng = store.engine
+    eng._state_cache.clear()
+    eng._lm_cache.clear()
+    eng._filter_cache = None
+    store.vlog._device = None
+
+
+class HotSyncs:
+    """The dispatch-half replays of one run: each phase's records by half,
+    the port functions its halves ran, HOTSYNC's findings over the port
+    (read once) and the calibrated device sleep."""
+
+    def __init__(self):
+        self.records: dict = {}      # phase -> {half: record}
+        self.funcs: dict = {}        # phase -> {(path, function)}
+        self._static: dict | None = None
+        self._hot: dict | None = None    # path -> registered hot qualnames
+        self._hold: int | None = None
+
+    def static(self) -> dict:
+        """HOTSYNC's findings over ``port/repro_torch`` that no justified
+        allow suppresses, by (path, function), from the port's own
+        rule."""
+        if self._static is None:
+            from repro_torch.analysis import HotSyncRule, run_lint
+            self._static = {}
+            for f in run_lint([PORT_SRC], [HotSyncRule()], root=HERE):
+                if f.rule == "HOTSYNC" and not f.suppressed:
+                    self._static.setdefault((f.path, f.symbol),
+                                            []).append(f.render())
+        return self._static
+
+    def checks(self, func: tuple) -> bool:
+        """Whether HOTSYNC checks the port function ``(path, qualname)``:
+        a registered hot function or one nested in it."""
+        if self._hot is None:
+            from repro_torch.analysis.core import (iter_py_files, match_hot,
+                                                   walk_functions)
+            from repro_torch.analysis.hotsync import DEFAULT_HOT_FUNCTIONS
+            self._hot = {}
+            for path in iter_py_files([PORT_SRC]):
+                with open(path) as fh:
+                    tree = ast.parse(fh.read())
+                self._hot[os.path.relpath(path, HERE)] = [
+                    qual for qual, cls, fn in walk_functions(tree)
+                    if match_hot(DEFAULT_HOT_FUNCTIONS, cls, fn.name)]
+        path, qual = func
+        return any(qual == h or qual.startswith(h + ".")
+                   for h in self._hot.get(path, ()))
+
+    def hold_cycles(self) -> int:
+        """Cycles of ``torch.cuda._sleep`` that keep the current stream busy
+        for about DEVICE_HOLD_MS, calibrated once with CUDA events."""
+        if self._hold is None:
+            import torch
+            n = 1 << 24
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            torch.cuda._sleep(n)
+            b.record()
+            b.synchronize()
+            self._hold = int(n * DEVICE_HOLD_MS / a.elapsed_time(b))
+        return self._hold
+
+    def replay(self, phase: str, half: str, dispatch, resolve,
+               batches: list, token, on_card: bool, restack=None) -> dict:
+        """Replays ``batches`` one at a time through the dispatch half
+        ``dispatch`` under :class:`SyncWatch`, and resolves each with
+        ``resolve(pending, probes)`` (which checks every answer) after the
+        mode is reset.  ``restack()``, when given, drops the half's device
+        state before the first batch, so that batch restacks and uploads
+        it as the first dispatch after a structure change does; ``token()``
+        names the device state, and must change on that batch and on no
+        other.  A batch that synchronized fails the run, naming the call.
+        On the card each steady-state dispatch also starts behind
+        DEVICE_HOLD_MS of device sleep on its stream, and must return while
+        the sleep still runs: a wait for the device that the sync debug
+        mode does not see (it is a prototype) shows there; the restacking
+        batch's return is only recorded.  The record also counts the port's
+        HOTSYNC findings in the functions the half ran, and lists those of
+        them the rule does not check."""
+        import torch
+        rec = {"batches": len(batches), "syncs": 0, "state_rebuilds": 0,
+               "rebuild_syncs": 0, "returned_while_device_busy": 0,
+               "rebuild_returned_while_device_busy": None,
+               "device_hold_ms": DEVICE_HOLD_MS if on_card else None,
+               "dispatch_ms": []}
+        funcs = set()
+        for bi, p in enumerate(batches):
+            restacks = bi == 0 and restack is not None
+            if restacks:
+                restack()
+            before = token()
+            if on_card:
+                torch.cuda._sleep(self.hold_cycles())
+                busy = torch.cuda.Event()
+                busy.record()
+            t0 = time.perf_counter()
+            with SyncWatch(on_card) as w:
+                pending = dispatch(p)
+            rec["dispatch_ms"].append(1e3 * (time.perf_counter() - t0))
+            held = on_card and not busy.query()
+            rebuilt = token() != before
+            resolve(pending, p)
+            funcs |= w.funcs
+            if rebuilt != restacks:
+                fail(f"phase {phase}: {half} "
+                     + (f"rebuilt its device state on replayed batch {bi} "
+                        f"with no structure change" if rebuilt else
+                        "did not restack the device state it was made "
+                        "to drop"))
+            if restacks:
+                rec["state_rebuilds"] += 1
+                rec["rebuild_syncs"] += len(w.syncs)
+                rec["rebuild_returned_while_device_busy"] = held
+            else:
+                rec["syncs"] += len(w.syncs)
+                rec["returned_while_device_busy"] += held
+            if w.syncs:
+                fail(f"phase {phase}: {half} synchronized {len(w.syncs)} "
+                     f"times in {'restacking' if restacks else 'steady-state'}"
+                     f" batch {bi}, first at {w.syncs[0]}")
+            if on_card and not held and not restacks:
+                fail(f"phase {phase}: {half} returned from steady-state batch "
+                     f"{bi} only after the {DEVICE_HOLD_MS} ms of device work "
+                     f"queued before it had finished: it waited for the "
+                     f"device")
+        static = self.static()
+        checked = {f for f in funcs if self.checks(f)}
+        rec.update(static_findings=sum(len(static.get(f, ())) for f in funcs),
+                   functions=len(funcs),
+                   hot_functions=sorted(sym for _, sym in checked),
+                   unchecked=sorted(sym for _, sym in funcs - checked),
+                   sync_debug_mode="warn" if on_card else None)
+        self.records.setdefault(phase, {})[half] = rec
+        self.funcs.setdefault(phase, set()).update(funcs)
+        return rec
+
+    def line(self) -> dict:
+        """The hot_syncs record: per phase, the syncs the card saw in its
+        dispatch halves (steady-state batches, and the batch that
+        restacked the device state), the HOTSYNC findings in the functions
+        they ran, how many port functions ran and how many of them the
+        rule checks, with each half's record."""
+        static = self.static()
+        out = {}
+        for phase, halves in self.records.items():
+            funcs = self.funcs[phase]
+            out[phase] = {
+                "syncs": sum(r["syncs"] for r in halves.values()),
+                "rebuild_syncs": sum(r["rebuild_syncs"]
+                                     for r in halves.values()),
+                "static_findings": sum(len(static.get(f, ()))
+                                       for f in funcs),
+                "functions_run": len(funcs),
+                "functions_checked": sum(map(self.checks, funcs)),
+                "halves": halves}
+        return out
 
 
 # ----------------------------------------------------------------------------
@@ -280,10 +536,12 @@ def phase_line(tag: str, store, res: dict, card: str, extra: dict) -> None:
 
 
 def drive(device: str, n_keys: int, seed: int, card: str,
-          batch: int = 4096, n_batches: int = 64) -> object:
-    """Phases A-C of the main path on ``device``.  Returns the store, the
-    kernel launch counts of phases A-C, and (level, device level, tables)
-    of the widest level as phase B served it, for the kernel checks."""
+          batch: int = 4096, n_batches: int = 64, *,
+          hot: HotSyncs) -> object:
+    """Phases A-C of the main path on ``device``, C's dispatch half
+    replayed into ``hot``.  Returns the store, the kernel launch counts of
+    phases A-C, and (level, device level, tables) of the widest level as
+    phase B served it, for the kernel checks."""
     import torch
     from repro_torch.core import BourbonStore, StoreConfig, make_dataset
 
@@ -368,6 +626,14 @@ def drive(device: str, n_keys: int, seed: int, card: str,
     if device != "cpu":
         torch.cuda.reset_peak_memory_stats()
     res = run_gets(store, truth, cb, "C")
+
+    def resolve(pb, p):
+        truth.check("C replay", p, *store.resolve_get(pb))
+
+    res["hot_syncs"] = hot.replay(
+        "C", "BourbonStore.dispatch_get", store.dispatch_get, resolve,
+        cb[1: 1 + SYNC_REPLAYS], lambda: store_token(store), device != "cpu",
+        restack=lambda: drop_device_state(store))
     if device != "cpu":
         res["profile"] = profile_gets(store.get_batch, cb[:8])
     res["host_profile"] = host_profile(store.get_batch, cb[:8])
@@ -454,14 +720,62 @@ def _level_lookup_pair(sh, probes: np.ndarray):
     return dev, host, fstate
 
 
+def replay_sharded(hot: HotSyncs, phase: str, st, truth: Truth,
+                   batches: list, device: str) -> dict:
+    """``HotSyncs.replay`` of a sharded store's ``dispatch_get`` (values
+    fetched at resolve), its state token the store's state epoch."""
+    def resolve(pb, p):
+        truth.check(f"{phase} replay", p, *st.resolve_get(pb))
+
+    return hot.replay(
+        phase, "ShardedStore.dispatch_get",
+        lambda p: st.dispatch_get(p, with_values=True), resolve, batches,
+        lambda: st.state_epoch, device != "cpu",
+        restack=lambda: drop_device_state(st))
+
+
+def replay_level_shard(hot: HotSyncs, sh, truth: Truth, keys: np.ndarray,
+                       batches: list, device: str) -> dict:
+    """Phase E's two dispatch halves through ``HotSyncs.replay``: the
+    shard's own ``dispatch_get`` in mode "level", and
+    ``LookupEngine.lookup_async`` whose filter mask the card probes (its
+    state and filter stack built before, as a dispatch finds them)."""
+    on_card = device != "cpu"
+
+    def resolve_get(pb, p):
+        found, vptr = sh.resolve_get(pb)
+        truth.check("E replay", p, found,
+                    sh.vlog.get_batch_np(np.where(found, vptr, -1)))
+
+    hot.replay("E", "BourbonStore.dispatch_get", sh.dispatch_get,
+               resolve_get, batches, lambda: store_token(sh), on_card,
+               restack=lambda: drop_device_state(sh))
+    eng = sh.engine
+    state = eng.build_state(sh.tree, sh.level_models)
+    fstate = eng.build_filter_state(sh.level_filters)
+    l0 = len(sh.tree.levels[0])
+
+    def resolve_lookup(pl, p):
+        res = pl.resolve()
+        want = Truth._isin(keys, p) & ~sh.memtable.get_batch(p)[0]
+        if not np.array_equal(res.found & (res.vptr >= 0), want):
+            fail("phase E replay: the direct level lookup is wrong")
+
+    hot.replay("E", "LookupEngine.lookup_async",
+               lambda p: eng.lookup_async(state, p, "level", l0_live=l0,
+                                          fstate=fstate),
+               resolve_lookup, batches, lambda: store_token(sh), on_card)
+    return hot.records["E"]
+
+
 def drive_sharded(device: str, n_keys: int, seed: int, card: str,
-                  n_batches: int = 32):
+                  n_batches: int = 32, *, hot: HotSyncs):
     """Phases D and E, on the stacked GET (``mesh=None``, whatever cards
-    the machine has).  Returns the reopened store, the kernel launch
-    counts of D and E, the shard engine's FilterState (for the stack
-    probe's check at its second live shape), the temporary directory to
-    remove, the store's Truth (for phases F and G) and D's batches (for
-    phase G)."""
+    the machine has), their dispatch halves replayed into ``hot``.
+    Returns the reopened store, the kernel launch counts of D and E, the
+    shard engine's FilterState (for the stack probe's check at its second
+    live shape), the temporary directory to remove, the store's Truth (for
+    phases F and G) and D's batches (for phase G)."""
     import torch
     from repro_torch.core import make_dataset
     from repro_torch.distributed import ShardedConfig, ShardedStore
@@ -507,6 +821,9 @@ def drive_sharded(device: str, n_keys: int, seed: int, card: str,
                  f"files, {stats['level_models_recovered']} level models "
                  "recovered)")
         res2 = run_sharded_gets(st, truth, batches, "D-reopen")
+        res2["hot_syncs"] = replay_sharded(hot, "D", st, truth,
+                                           batches[1: 1 + SYNC_REPLAYS],
+                                           device)
 
         def get(p):
             return st.get_batch(p, with_values=True)
@@ -529,7 +846,7 @@ def drive_sharded(device: str, n_keys: int, seed: int, card: str,
             "level_models_recovered": stats["level_models_recovered"],
             "models_recovered": stats["models_recovered"],
             "launches": res["launches"], "reopen_launches": res2["launches"],
-            "profile": res2.get("profile"),
+            "hot_syncs": res2["hot_syncs"], "profile": res2.get("profile"),
             "host_profile": res2["host_profile"],
             "device_max_bytes": dev_bytes,
             "state_shapes": {k: list(v.shape) for k, v in state.items()},
@@ -560,6 +877,8 @@ def drive_sharded(device: str, n_keys: int, seed: int, card: str,
         if sh.lookups_baseline_path != base0:
             fail("phase E: level-mode GETs took the baseline arm")
         e_launch = {k: v - launched[k] for k, v in ops.launches.items()}
+        e_syncs = replay_level_shard(hot, sh, truth, keys,
+                                     eb[1: 1 + SYNC_REPLAYS], device)
         dev, host, fstate = _level_lookup_pair(sh, eb[0])
         if not (np.array_equal(dev.found, host.found)
                 and np.array_equal(dev.vptr, host.vptr)):
@@ -576,7 +895,8 @@ def drive_sharded(device: str, n_keys: int, seed: int, card: str,
                                for m in sh.level_models],
             "gets_per_s": sum(p.shape[0] for p in eb[1:]) / sum(secs[1:]),
             "batch_ms_median": 1e3 * per[len(per) // 2],
-            "launches": e_launch, "filter_state": list(fstate.bits.shape),
+            "launches": e_launch, "hot_syncs": e_syncs,
+            "filter_state": list(fstate.bits.shape),
             "direct_lookup_equal": True, "card": card}))
         launches = dict(ops.launches)       # read just after phase E
         return st, launches, fstate, d, truth, batches
@@ -1015,8 +1335,7 @@ MESH_KERNELS = ("bloom_probe_stack", "plr_lookup", "bounded_search")
 def _example():
     """``port/examples/distributed_get.py`` as a module."""
     import importlib.util
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "port",
-                        "examples", "distributed_get.py")
+    path = os.path.join(HERE, "port", "examples", "distributed_get.py")
     spec = importlib.util.spec_from_file_location("distributed_get", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
@@ -1024,18 +1343,19 @@ def _example():
 
 
 def drive_mesh(st, path: str, truth: Truth, batches: list, n_keys: int,
-               seed: int, device: str, card: str):
-    """Phase G: the mesh GET.  D's batches run once more on D's store
-    without a mesh, as it stands after F; the store is closed and reopened
-    from its directory on a mesh of one device a shard (four distinct
-    cards when the machine has four, else ``device`` four times); the
-    batches replay, every answer checked against the truth and byte for
-    byte against the answers without a mesh; F's arms 1-2 serve once each
-    over the mesh store, answering alike; and
-    ``port/examples/distributed_get.py`` runs at ``n_keys`` keys over
-    every visible card.  Counts are zeroed just before G and read just
-    after: each of the three kernels must launch once a mesh device a
-    mesh GET (the example's filterless state runs no stack probe).
+               seed: int, device: str, card: str, *, hot: HotSyncs):
+    """Phase G: the mesh GET, its dispatch half replayed into ``hot``.
+    D's batches run once more on D's store without a mesh, as it stands
+    after F; the store is closed and reopened from its directory on a
+    mesh of one device a shard (four distinct cards when the machine has
+    four, else ``device`` four times); the batches replay, every answer
+    checked against the truth and byte for byte against the answers
+    without a mesh; F's arms 1-2 serve once each over the mesh store,
+    answering alike; and ``port/examples/distributed_get.py`` runs at
+    ``n_keys`` keys over every visible card.  Counts are zeroed just
+    before G and read just after: each of the three kernels must launch
+    once a mesh device a mesh GET (the example's filterless state runs no
+    stack probe).
     Returns the mesh store, the G record (also printed) and the probe sets
     for :func:`mesh_shape_checks`: the batches the mesh store dispatched
     (``DispatchCapture.sets``) and the example's keys, δ and state."""
@@ -1071,6 +1391,8 @@ def drive_mesh(st, path: str, truth: Truth, batches: list, n_keys: int,
             bad = sum(a != b for a, b in zip(answers, plain))
             fail(f"phase G: {bad} batches answered differently from the "
                  "same store without a mesh")
+        hot_syncs = replay_sharded(hot, "G", stm, truth,
+                                   batches[1: 1 + SYNC_REPLAYS], device)
 
         def get(p):
             return stm.get_batch(p, with_values=True)
@@ -1110,6 +1432,7 @@ def drive_mesh(st, path: str, truth: Truth, batches: list, n_keys: int,
            "batch_ms_median": res["batch_ms_median"],
            "batch_ms_max": res["batch_ms_max"],
            "identical_to_no_mesh": True, "mesh_gets": dc.n,
+           "hot_syncs": hot_syncs,
            "profile": res.get("profile"),
            "arms": [{k: r[k] for k in ("arm", "requests_per_s",
                                        "keys_per_s", "p50_ms", "p99_ms",
@@ -1909,8 +2232,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script measures the card",
               file=sys.stderr)
         return 1
-    here = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, os.path.join(here, "port"))
+    sys.path.insert(0, os.path.join(HERE, "port"))
     try:
         from repro_torch.kernels import build
     except ImportError as e:
@@ -1936,7 +2258,9 @@ def main() -> int:
               f"{STACK_GROUPS}) built in "
               f"{time.perf_counter() - t0:.1f}s")
 
-    store, launches, snapshot = drive("cuda", args.keys, args.seed, card)
+    hot = HotSyncs()
+    store, launches, snapshot = drive("cuda", args.keys, args.seed, card,
+                                      hot=hot)
     checks = kernel_checks(store, launches, snapshot, variants)
     for k in checks:
         if k["launches"] <= 0:
@@ -1944,7 +2268,7 @@ def main() -> int:
     del store, snapshot
     gc.collect()
     st, launches_de, fstate, shard_dir, truth, d_batches = drive_sharded(
-        "cuda", args.shard_keys, args.seed, card)
+        "cuda", args.shard_keys, args.seed, card, hot=hot)
     try:
         for name in ("bloom_probe_stack", "plr_lookup", "bounded_search"):
             if launches_de[name] <= 0:
@@ -1970,7 +2294,8 @@ def main() -> int:
             if k["name"] in served["served_shape_checks"]:
                 k["served_shape"] = served["served_shape_checks"][k["name"]]
         st, g, g_sets = drive_mesh(st, shard_dir, truth, d_batches,
-                                   args.shard_keys, args.seed, "cuda", card)
+                                   args.shard_keys, args.seed, "cuda", card,
+                                   hot=hot)
         mesh_shapes = mesh_shape_checks(st, d_batches, g_sets, args.seed)
         for k in checks:
             k["launches_g"] = g["launches"][k["name"]]
@@ -1990,7 +2315,14 @@ def main() -> int:
         if k["mismatches"] != 0 or any(other.values()):
             fail(f"{k['name']} disagrees with its plain version on "
                  f"{k['mismatches']} outputs (other checks: {other})")
+    hot_line = hot.line()
+    for phase, r in hot_line.items():
+        if r["static_findings"]:
+            fail(f"phase {phase}: the port's HOTSYNC rule flags "
+                 f"{r['static_findings']} calls in the functions its "
+                 f"dispatch halves ran")
     print(f"total {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"hot_syncs": hot_line, "card": card}))
     print(json.dumps({"kernels": checks}))
     print(card)
     print(json.dumps({"ok": True, "device": {

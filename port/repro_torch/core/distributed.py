@@ -228,7 +228,7 @@ def place_dist_state(state_np: dict, mesh: Mesh) -> list:
             v = np.ascontiguousarray(v[s: s + 1])
             if k == "fbits":
                 v = v.view(np.int64)
-            row[k] = torch.from_numpy(v).to(dev)
+            row[k] = _to(torch.from_numpy(v), dev)
         out.append(row)
     return out
 

@@ -68,6 +68,16 @@ def resolve_device(device: str) -> torch.device:
     return dev
 
 
+def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array ``a`` on ``device`` without waiting for the card: pinned
+    and copied non-blocking, as a pageable copy waits for the stream, i.e.
+    for every kernel queued before it.  On the CPU, ``a`` itself."""
+    t = torch.from_numpy(a)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 # ----------------------------------------------------------------------------
 # device state
 # ----------------------------------------------------------------------------
@@ -223,9 +233,6 @@ class LookupEngine:
         self.filter_stats_acc = None
         self.filter_acc_materializations = 0
 
-    def _to_dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
-
     # ---------------------------------------------------------------- build
     def _build_level(self, tables) -> DeviceLevel:
         cfg = self.cfg
@@ -253,7 +260,7 @@ class LookupEngine:
             bloom_nw[i] = t.bloom.shape[0]
             min_key[i] = t.min_key
             max_key[i] = t.max_key
-        d = self._to_dev
+        d = self._upload
         return DeviceLevel(d(keys), d(vptrs), d(n), d(fences), d(n_blocks),
                            d(bloom.view(np.int64)), d(bloom_nw), d(min_key),
                            d(max_key), n_files=len(tables),
@@ -277,7 +284,7 @@ class LookupEngine:
                 slopes[i, :ns] = t.model.slopes[:ns]
                 icepts[i, :ns] = t.model.intercepts[:ns]
                 nseg[i] = ns
-        d = self._to_dev
+        d = self._upload
         return {"starts": d(starts), "slopes": d(slopes), "icepts": d(icepts),
                 "nseg": d(nseg)}
 
@@ -303,7 +310,7 @@ class LookupEngine:
             starts[0, :ns] = np.asarray(model.starts)[:ns]
             slopes[0, :ns] = np.asarray(model.slopes)[:ns]
             icepts[0, :ns] = np.asarray(model.intercepts)[:ns]
-        d = self._to_dev
+        d = self._upload
         return LevelModel(d(starts), d(slopes), d(icepts),
                           d(np.array([ns], np.int32)),
                           d(np.array([acc], np.int32)), d(file_start), ns)
@@ -375,8 +382,8 @@ class LookupEngine:
             if f is not None:
                 bits[i, : f.n_words] = f.bits
                 nw[i] = f.n_words
-        fs = FilterState(self._to_dev(bits.view(np.int64)), self._to_dev(nw),
-                         self._to_dev(nw > 0))
+        fs = FilterState(self._upload(bits.view(np.int64)), self._upload(nw),
+                         self._upload(nw > 0))
         self._filter_cache = (sig, fs)
         return fs
 
@@ -605,12 +612,7 @@ class LookupEngine:
         return PendingLookup(found, vptr, served, pos_c, neg_c, values)
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(a)
-        if self.device.type == "cuda":
-            # pinned + non_blocking: a pageable copy would wait for the
-            # stream, i.e. for the previous batch's kernels
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
+        return upload(a, self.device)
 
     def lookup(self, state: DeviceState, probes: np.ndarray, mode: str,
                vlog=None, l0_live: int | None = None,

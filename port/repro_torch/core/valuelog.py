@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .engine import upload
+
 __all__ = ["ValueLog"]
 
 
@@ -66,6 +68,5 @@ class ValueLog:
 
     def device_view(self) -> torch.Tensor:
         if self._device is None or self._device.shape[0] < self._head:
-            self._device = torch.from_numpy(self._buf[: self._head]).to(
-                self.device)
+            self._device = upload(self._buf[: self._head], self.device)
         return self._device

@@ -54,7 +54,7 @@ from repro_torch.core.distributed import (DistStoreConfig, build_dist_get,
                                           build_dist_state_from_shards,
                                           dist_get_local, next_pow2,
                                           place_dist_state)
-from repro_torch.core.engine import EngineConfig
+from repro_torch.core.engine import EngineConfig, upload
 from repro_torch.core.filters import FilterConfig, build_level_filter
 from repro_torch.core.lsm import LSMConfig
 from repro_torch.core.mesh import Mesh, make_mesh
@@ -475,7 +475,7 @@ class ShardedStore:
             else:
                 if "fbits" in state_np:   # the uint64 words as int64 bits
                     state_np["fbits"] = state_np["fbits"].view(np.int64)
-                self._state = {k: torch.from_numpy(v).to(self.device)
+                self._state = {k: upload(v, self.device)
                                for k, v in state_np.items()}
             self._state_epochs = epochs
             self.state_epoch += 1
@@ -512,9 +512,8 @@ class ShardedStore:
                     self._mesh, cfg, state_keys=tuple(sorted(state[0])),
                     k_hashes=self.shards[0].cfg.lsm.bloom_k)
             return self._get_fn(state, torch.from_numpy(buf))
-        upload = self.shards[0].engine._upload   # pinned, non-blocking
-        buf_dev = upload(buf)
-        rows = upload(self.shard_of(buf))
+        buf_dev = upload(buf, self.device)
+        rows = upload(self.shard_of(buf), self.device)
         maybe = None
         if "fbits" in state:
             # one batched stack-probe for every shard row, async like the

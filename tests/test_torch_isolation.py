@@ -44,7 +44,11 @@ def test_importing_every_module_loads_no_jax_or_repro():
             "repro_torch.server.coordinator", "repro_torch.server.frontend",
             "repro_torch.server.pipeline",
             "repro_torch.core.workloads", "repro_torch.core.mesh",
-            "repro_torch.core.distributed"} <= set(mods)
+            "repro_torch.core.distributed", "repro_torch.analysis",
+            "repro_torch.analysis.core", "repro_torch.analysis.hotsync",
+            "repro_torch.analysis.durorder", "repro_torch.analysis.pairing",
+            "repro_torch.analysis.obsdrift",
+            "repro_torch.analysis.deadmod"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, sys
         sys.path.insert(0, {PORT!r})
@@ -78,6 +82,7 @@ def test_no_source_imports_jax_or_repro():
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     assert len(paths) > 10
     assert os.path.join(PORT, "examples", "distributed_get.py") in paths
+    assert os.path.join(PORT, "scripts", "lint.py") in paths
     for p in paths:
         bad = FORBIDDEN.intersection(_imports(p))
         assert not bad, f"{p} imports {bad}"

@@ -21,7 +21,9 @@ first, in the middle and last, a one-word filter, rows whose nw is below
 the padded W; test_torch_filter_plane.py holds them to the JAX package)
 and ragged B of 1, 63 and 4096 + 37.  ``greedy_plr_torch``'s loop runs
 on the card with synchronizing calls made errors, and fits the segments
-of ``greedy_plr_np``.  The store tests drive whole stores — file- and
+of ``greedy_plr_np``; so do the stores' dispatch halves, in steady state
+and in the first dispatch after a structure change, which restacks and
+uploads the device state.  The store tests drive whole stores — file- and
 level-granularity, and the sharded store — on the card and on the CPU.
 The mesh tests run the mesh GET on cuda:0 four times against the CPU four
 times, and (with two cards or more) on two distinct cards while cuda:0 is
@@ -493,6 +495,130 @@ def test_greedy_plr_torch_on_cuda_never_syncs_in_loop(case):
         np.testing.assert_allclose(m_pt.starts[:n], m_np.starts[:n])
         np.testing.assert_allclose(m_pt.slopes[:n], m_np.slopes[:n],
                                    rtol=1e-12)
+
+
+def _never_syncing(fn, *args, **kw):
+    """``fn(*args, **kw)`` with every synchronizing CUDA call an error."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+DISPATCH_CASES = ["model", "model_pure", "level", "sharded", "mesh"]
+
+
+def _card_store(case, tmp_path, keys):
+    """A store on the card holding ``keys``, flushed and learned: in
+    memory in mode ``case`` (values fetched on the device in mode model),
+    or sharded four ways, stacked or on a mesh of cuda:0 four times."""
+    from repro_torch.core import BourbonStore, LSMConfig, StoreConfig
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.distributed import ShardedConfig, ShardedStore
+
+    lsm = LSMConfig(memtable_cap=1 << 10, file_cap=1 << 11,
+                    l1_cap_records=1 << 13)
+    if case in ("sharded", "mesh"):
+        bounds = tuple(int(b) for b in np.quantile(keys, [0.25, 0.5, 0.75]))
+        st = ShardedStore.open(
+            str(tmp_path), ShardedConfig(4, boundaries=bounds),
+            StoreConfig(granularity="level", policy="always", value_size=16,
+                        lsm=lsm), device="cuda",
+            mesh=make_mesh((4,), ("shard",), ["cuda:0"] * 4)
+            if case == "mesh" else None)
+        assert st.uses_shard_map == (case == "mesh")
+    else:
+        st = BourbonStore(StoreConfig(
+            granularity="level" if case == "level" else "file",
+            policy="always" if case == "level" else "offline", lsm=lsm,
+            fetch_values=case == "model", device="cuda"))
+    _settle(st, case, np.random.default_rng(22).permutation(keys))
+    return st
+
+
+def _settle(st, case, keys):
+    """PUT ``keys``, flush, and let the learning it starts complete (a
+    structure change the next dispatch restacks)."""
+    st.put_batch(keys)
+    st.flush_all()
+    st.drain_learning()
+    if case == "model_pure":
+        st.learn_all()
+    if case not in ("sharded", "mesh"):
+        assert st._engine_mode() == case
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", DISPATCH_CASES)
+def test_dispatch_halves_never_sync(case, tmp_path):
+    """The dispatch halves launch their device work without a
+    synchronizing CUDA call once the first GET has built the device state,
+    as the reference's dispatch is asynchronous: the in-memory store's
+    ``dispatch_get`` in modes model, model_pure and level (in level also
+    ``LookupEngine.lookup_async`` with the device filter probe), and the
+    sharded store's ``dispatch_get`` stacked and on a mesh of cuda:0 four
+    times.  Each batch resolves after the mode is reset, every answer
+    right."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    keys = make_dataset("osm", 1 << 14, seed=21)
+    rng = np.random.default_rng(23)
+    st = _card_store(case, tmp_path, keys)
+    batches = [np.concatenate([rng.choice(keys, 2048),
+                               rng.choice(keys, 2048) + 1])
+               for _ in range(4)]
+    st.get_batch(batches[0])                 # builds the device state
+    ops.reset_launches()
+    for p in batches[1:]:
+        pb = _never_syncing(st.dispatch_get, p)
+        found, _ = st.resolve_get(pb)
+        np.testing.assert_array_equal(found, np.isin(p, keys))
+    assert ops.launches["plr_lookup"] > 0
+    if case == "level":
+        eng = st.engine
+        state = eng.build_state(st.tree, st.level_models)
+        fstate = eng.build_filter_state(st.level_filters)
+        pl = _never_syncing(eng.lookup_async, state, batches[1], "level",
+                            l0_live=len(st.tree.levels[0]), fstate=fstate)
+        res = pl.resolve()
+        np.testing.assert_array_equal(res.found & (res.vptr >= 0),
+                                      np.isin(batches[1], keys))
+        assert ops.launches["bloom_probe_stack"] > 0
+    if case in ("sharded", "mesh"):
+        st.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", DISPATCH_CASES)
+def test_dispatch_after_structure_change_never_syncs(case, tmp_path):
+    """The first dispatch after a structure change restacks the device
+    state it reads (levels, level models, the filter stack, the value
+    log's copy, the sharded rows or their mesh placement) and uploads it
+    without a synchronizing CUDA call: the uploads are pinned and
+    non-blocking, as the reference's ``device_put`` is asynchronous.  New
+    keys are flushed and their learning drained after the state was
+    built; the next dispatch runs with synchronizing calls made errors,
+    and finds the new keys."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    keys = make_dataset("osm", 1 << 14, seed=21)
+    rng = np.random.default_rng(24)
+    st = _card_store(case, tmp_path, keys)
+    st.get_batch(rng.choice(keys, 4096))     # builds the device state
+    new = np.setdiff1d(np.unique(rng.choice(keys, 2048) + 1), keys)
+    _settle(st, case, new)                   # flush + learning: restack
+    every = np.union1d(keys, new)
+    p = np.concatenate([rng.choice(keys, 2048), new[:1024],
+                        np.setdiff1d(new[:1024] + 1, every)])
+    ops.reset_launches()
+    pb = _never_syncing(st.dispatch_get, p)
+    found, _ = st.resolve_get(pb)
+    np.testing.assert_array_equal(found, np.isin(p, every))
+    assert ops.launches["plr_lookup"] > 0
+    if case in ("sharded", "mesh"):
+        st.close()
 
 
 @pytest.mark.gpu
