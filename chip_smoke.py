@@ -57,6 +57,29 @@
         just after: the three kernels must launch once a mesh device a
         mesh GET.  Then they are held against their plain versions at G's
         one-row shapes, on every mesh device's shard row.
+     H  the served LM: ``repro_torch.serving.ServingEngine`` with
+        qwen2-0.5b at full width in bf16 (``init_params`` from a generator
+        seeded ``--seed``), 256 sequences at a time over a 1024-token
+        cache, and a ``SessionStore`` index preloaded with H_SESSIONS
+        (1,048,576) live background sessions: uniform signed 64-bit ids in
+        register batches of 4096, 10% of each batch evicted a batch later.
+        H_REQUESTS (512) requests of 3-9 prompt tokens and 16 new
+        tokens run until drained, another 4096 background sessions
+        registered every 8 engine steps (flushing the active sessions out
+        of the memtable, as other engines sharing the index would); then
+        32 direct lookups of 4096 ids, half live and half absent.  Every
+        lookup, the engine's and the direct ones, is checked against a
+        ground-truth dict of registered minus evicted sessions; every
+        request must finish with 16 tokens and every page return to the
+        pool; 8 engine steps run under torch.profiler.  At the same width,
+        8 sequences of 16 tokens decoded step by step are held to
+        ``forward`` over the same tokens, and their first 4 steps to the
+        same port in f32 on the CPU from the same parameters, within
+        H_LOGIT_TOL of the largest logit.  Counts are zeroed just before
+        the serving and read after the direct lookups: ``plr_lookup``,
+        ``bounded_search``, ``bloom_probe`` and ``sstable_search`` must
+        have launched; then they are held against their plain versions on
+        every level of the session index, on the id batches H looked up.
    After the timed batches of C, D, E and G, 4 of the phase's batches
    replay through its dispatch half (``BourbonStore.dispatch_get`` in C,
    ``ShardedStore.dispatch_get`` in D and G, and in E shard 0's
@@ -78,7 +101,8 @@
    both of its live shapes; ``plr_lookup`` also at phase D's stacked shard
    tables and phase E's one-row level model; ``bounded_search`` also at
    δ = 40 and ``bloom_probe`` at k = 12; the three kernels of phase F also
-   at the batch sizes F dispatched, on its probes), times both with CUDA
+   at the batch sizes F dispatched, on its probes; the four descent
+   kernels also at phase H's session index), times both with CUDA
    events and torch.profiler, and computes the kernel's lower bound from
    the bytes its probes must gather and the per-launch floor (the device
    time of one trivial PyTorch kernel over 4096 elements).
@@ -104,6 +128,7 @@ from __future__ import annotations
 
 import argparse
 import ast
+import dataclasses
 import gc
 import json
 import os
@@ -1597,6 +1622,362 @@ def mesh_shape_checks(stm, batches: list, sets: dict, seed: int) -> dict:
 # kernels against their plain versions
 # ----------------------------------------------------------------------------
 
+# ----------------------------------------------------------------------------
+# the served LM over the session index (phase H)
+# ----------------------------------------------------------------------------
+
+H_ARCH = "qwen2-0.5b"     # the arch of launch/serve.py and the serving test
+H_SESSIONS = 1 << 20      # live background sessions preloaded in the index
+H_REG_BATCH = 4096        # sessions a register_batch
+H_EVICT = 410             # of each register batch, evicted a batch later
+H_REQUESTS = 512
+H_MAX_NEW = 16
+H_BG_EVERY = 8            # engine steps between background register batches
+H_DIRECT = 32             # direct lookup_batch calls of H_REG_BATCH ids
+H_PROFILE_AT = 2          # first profiled engine step (no admission in it)
+H_PROFILE_STEPS = 8
+H_ENGINE = {"max_batch": 256, "max_seq": 1024, "page_tokens": 16,
+            "n_pages": 4096}
+H_CHECK_B, H_CHECK_T, H_CPU_STEPS = 8, 16, 4
+# Set from readings on an H100 (port/scripts/logit_tol_control.py, seeds
+# 0-3): the sound port reads 1.69-2.11% of the largest logit for both
+# comparisons.  Controls with the norm or RoPE in bf16 read 1.75-2.27%,
+# and with the softmax in bf16 or the score divide after the f32 cast
+# exactly as sound (the scores are bf16 already; sqrt(64) is exact).  With
+# random weights those faults move the logits less than bf16's own
+# roundings do, so no bound above the sound readings sees them; 2^-4 is
+# 2.75x the largest reading.
+H_LOGIT_TOL = 2.0 ** -4
+
+
+class SessionTruth:
+    """The session index behind a ground-truth dict: ids registered minus
+    ids evicted -> (first_page, n_pages, prefix_len).  Stands in for the
+    engine's ``SessionStore``: registers and evictions go through to the
+    store and update the dict, and every lookup's answer is checked against
+    it (a miss fails the run).  Keeps up to TIMED_BATCHES of the id
+    batches the engine looked up, for the kernel checks."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.live = {}
+        self.lookups = self.ids_checked = 0
+        self.engine_sets = []
+
+    @property
+    def store(self):
+        return self.inner.store
+
+    def register_batch(self, ids, recs) -> None:
+        self.inner.register_batch(ids, recs)
+        for i, r in zip(ids.tolist(), recs):
+            self.live[i] = (r.first_page, r.n_pages, r.prefix_len)
+
+    def evict_batch(self, ids) -> None:
+        self.inner.evict_batch(ids)
+        for i in ids.tolist():
+            self.live.pop(i, None)
+
+    def lookup_batch(self, ids):
+        found, recs = self.inner.lookup_batch(ids)
+        self.check("H engine lookup", ids, found, recs)
+        if len(self.engine_sets) < TIMED_BATCHES:
+            self.engine_sets.append(np.array(ids, np.int64))
+        return found, recs
+
+    def check(self, tag: str, ids, found, recs) -> None:
+        for j, i in enumerate(ids.tolist()):
+            got = (None if not found[j] else
+                   (recs[j].first_page, recs[j].n_pages, recs[j].prefix_len))
+            if got != self.live.get(i):
+                fail(f"{tag} {self.lookups}: session {i} read {got}, "
+                     f"expected {self.live.get(i)}")
+        self.lookups += 1
+        self.ids_checked += len(ids)
+
+    def stats(self) -> dict:
+        return self.inner.stats()
+
+
+def _records(ids, b: int):
+    from repro_torch.serving.session_store import PageRecord
+    return [PageRecord(i & 0xFFFFF, 1 + b % 64, j % 1024)
+            for j, i in enumerate(ids.tolist())]
+
+
+def _float_copy(tree):
+    """A parameter tree as float32 on the CPU."""
+    if isinstance(tree, dict):
+        return {k: _float_copy(v) for k, v in tree.items()}
+    return tree.detach().float().cpu()
+
+
+def lm_logit_readings(params, cfg, seed: int, device: str) -> dict:
+    """At the served model's width: the decode of H_CHECK_B sequences of
+    H_CHECK_T tokens, step by step, against ``forward`` over the same
+    tokens, and its first H_CPU_STEPS steps against the same port in f32 on
+    the CPU from the same parameters: each comparison's largest error and
+    the reference's largest logit."""
+    import torch
+    from repro_torch.models import (Model, decode_step, forward,
+                                    init_caches)
+
+    toks = torch.from_numpy(np.random.default_rng(seed + 11).integers(
+        0, cfg.vocab, (H_CHECK_B, H_CHECK_T)).astype(np.int32))
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    with torch.inference_mode():
+        full = forward(params, cfg, tokens=toks.to(device))[0].float()
+        caches = init_caches(cfg, H_CHECK_B, H_CHECK_T, device=device)
+        dec = torch.cat([decode_step(params, cfg, caches,
+                                     tokens=toks[:, i:i + 1].to(device))[0]
+                         for i in range(H_CHECK_T)], dim=1).float()
+        p32 = Model(cfg32, _float_copy(params.tree()))
+        c32 = init_caches(cfg32, H_CHECK_B, H_CHECK_T, device="cpu")
+        cpu = torch.cat([decode_step(p32, cfg32, c32,
+                                     tokens=toks[:, i:i + 1])[0]
+                         for i in range(H_CPU_STEPS)], dim=1)
+    out = {}
+    for tag, got, want in (("decode_vs_forward", dec, full),
+                           ("card_vs_cpu_f32", dec[:, :H_CPU_STEPS].cpu(),
+                            cpu)):
+        out[tag] = {"max_abs_err": float((got.cpu() - want.cpu()).abs().max()),
+                    "logit_scale": float(want.abs().max()),
+                    "finite": bool(torch.isfinite(got).all())}
+    return out
+
+
+def lm_logit_checks(params, cfg, seed: int, device: str) -> dict:
+    """:func:`lm_logit_readings`, each comparison within H_LOGIT_TOL of the
+    reference's largest logit."""
+    out = lm_logit_readings(params, cfg, seed, device)
+    for tag, r in out.items():
+        r["tol"] = H_LOGIT_TOL * r["logit_scale"]
+        if not r["finite"] or r["max_abs_err"] > r["tol"]:
+            fail(f"phase H: {tag} logits differ by {r['max_abs_err']} "
+                 f"(tolerance {r['tol']})")
+    out["shape"] = {"B": H_CHECK_B, "T": H_CHECK_T,
+                    "cpu_steps": H_CPU_STEPS}
+    return out
+
+
+def drive_lm(device: str, seed: int, card: str, n_sessions: int = H_SESSIONS,
+             n_requests: int = H_REQUESTS, arch_cfg=None,
+             ecfg: dict | None = None) -> tuple:
+    """Phase H: the served LM.  ``arch_cfg`` (default: H_ARCH at full width
+    in bf16) from ``init_params`` with a generator seeded ``seed`` serves
+    ``n_requests`` requests through ``ServingEngine`` (``ecfg``, default
+    H_ENGINE) over a session index preloaded with ``n_sessions`` live
+    background sessions; then H_DIRECT direct lookups.  Counts are zeroed
+    just before the serving and read after the direct lookups.  Returns
+    the H record (also printed), the launch counts, the session store and
+    the probe sets for :func:`session_shape_checks`."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import EngineConfig, Request, ServingEngine
+
+    on_card = device != "cpu"
+    cfg = arch_cfg or get_config(H_ARCH)
+    ecfg = EngineConfig(**(ecfg or H_ENGINE))
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_params(cfg, gen, device=device)
+    eng = ServingEngine(cfg, params, ecfg, session_policy="always",
+                        device=device)
+    truth = SessionTruth(eng.sessions)
+    eng.sessions = truth
+    n_batches = -(-n_sessions // (H_REG_BATCH - H_EVICT))
+    rng = np.random.default_rng(seed + 7)
+    pool = np.unique(rng.integers(np.iinfo(np.int64).min,
+                                  np.iinfo(np.int64).max,
+                                  (n_batches + 16) * H_REG_BATCH + n_requests
+                                  + H_DIRECT * H_REG_BATCH, dtype=np.int64))
+    pool = rng.permutation(pool)
+    rids, pool = pool[:n_requests], pool[n_requests:]
+    absent, pool = pool[:H_DIRECT * H_REG_BATCH // 2], \
+        pool[H_DIRECT * H_REG_BATCH // 2:]
+    batches = iter(np.split(pool[:(pool.shape[0] // H_REG_BATCH)
+                                 * H_REG_BATCH],
+                            pool.shape[0] // H_REG_BATCH))
+
+    t0 = time.perf_counter()
+    prev = None
+    for b in range(n_batches):
+        ids = next(batches)
+        truth.register_batch(ids, _records(ids, b))
+        if prev is not None:
+            truth.evict_batch(rng.choice(prev, H_EVICT, replace=False))
+        prev = ids
+    preload_s = time.perf_counter() - t0
+    n_live0 = len(truth.live)
+    if n_live0 < n_sessions:
+        fail(f"phase H: {n_live0} live sessions after the preload")
+
+    prng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(n_requests):
+        prompt = prng.integers(0, cfg.vocab, size=prng.integers(3, 10)
+                               ).astype(np.int32)
+        reqs.append(Request(rid=int(rids[i]), prompt=prompt,
+                            max_new=H_MAX_NEW))
+        eng.submit(reqs[-1])
+    n_bg = 0
+
+    def serve_step() -> bool:
+        """One turn of the serving loop: a background register batch every
+        H_BG_EVERY engine steps, then an engine step; False once
+        drained."""
+        nonlocal n_bg
+        if not (eng.queue or eng.active):
+            return False
+        if eng.steps and eng.steps % H_BG_EVERY == 0:
+            ids = next(batches)
+            truth.register_batch(ids, _records(ids, n_batches + n_bg))
+            n_bg += 1
+        eng.step()
+        return True
+
+    profile = None
+    lookups0 = truth.lookups
+    if on_card:
+        torch.cuda.synchronize()
+    ops.reset_launches()                      # the main path starts here
+    t0 = time.perf_counter()
+    while eng.queue or eng.active:
+        if on_card and eng.steps == H_PROFILE_AT:
+            profile = profile_steps(serve_step, H_PROFILE_STEPS)
+            profile["first_step"] = H_PROFILE_AT
+        else:
+            serve_step()
+    serve_s = time.perf_counter() - t0
+    engine_lookups = truth.lookups - lookups0
+
+    live = np.fromiter(truth.live.keys(), np.int64, len(truth.live))
+    direct, secs = [], []
+    for d in range(H_DIRECT):
+        q = np.concatenate([rng.choice(live, H_REG_BATCH // 2),
+                            absent[d * H_REG_BATCH // 2:
+                                   (d + 1) * H_REG_BATCH // 2]])
+        t1 = time.perf_counter()
+        found, recs = truth.inner.lookup_batch(q)
+        secs.append(time.perf_counter() - t1)
+        truth.check("H direct lookup", q, found, recs)
+        direct.append(q)
+    launches = dict(ops.launches)             # read just after the lookups
+
+    for r in reqs:
+        if not r.done or len(r.generated) != H_MAX_NEW:
+            fail(f"phase H: request {r.rid} done={r.done} with "
+                 f"{len(r.generated)} tokens")
+        if not all(0 <= t < cfg.vocab for t in r.generated):
+            fail(f"phase H: request {r.rid} generated a token outside the "
+                 f"vocabulary")
+    if sorted(eng.pool.free) != list(range(ecfg.n_pages)):
+        fail("phase H: pages missing from the pool after draining")
+    if truth.store.n_gets == 0:
+        fail("phase H: the session store served no lookups")
+    checks = lm_logit_checks(params, cfg, seed, device)
+    st = truth.stats()
+    prefill = sum(int(r.prompt.shape[0]) for r in reqs)
+    generated = sum(len(r.generated) for r in reqs)
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in params.parameters())
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for c in eng.caches.values() for t in c.values())
+    rec = {"phase": "H", "arch": cfg.name, "dtype": cfg.dtype,
+           "params": cfg.param_count(), "param_bytes": param_bytes,
+           "cache_bytes": cache_bytes, "engine": dataclasses.asdict(ecfg),
+           "device_max_bytes": (torch.cuda.max_memory_allocated()
+                                if on_card else 0),
+           "requests": n_requests, "max_new": H_MAX_NEW,
+           "prefill_steps": prefill, "engine_steps": eng.steps,
+           "generated_tokens": generated, "serve_s": serve_s,
+           "generated_tokens_per_s": generated / serve_s,
+           "engine_steps_per_s": eng.steps / serve_s,
+           "decode_steps_per_s": (prefill + eng.steps) / serve_s,
+           "preload_s": preload_s, "preload_batches": n_batches,
+           "sessions_live_after_preload": n_live0,
+           "sessions_evicted_in_preload": (n_batches - 1) * H_EVICT,
+           "background_batches_while_serving": n_bg,
+           "engine_lookups": engine_lookups,
+           "direct_lookups": H_DIRECT, "direct_batch": H_REG_BATCH,
+           "session_lookups_per_s": H_DIRECT * H_REG_BATCH / sum(secs),
+           "direct_batch_ms_median": 1e3 * sorted(secs)[len(secs) // 2],
+           "ids_checked": truth.ids_checked,
+           "model_path_frac": st["model_path_frac"],
+           "filter_host_answered": st["filter_host_answered"],
+           "files_per_level": [len(lvl) for lvl in truth.store.tree.levels],
+           "learned_per_level": [sum(t.model is not None for t in lvl)
+                                 for lvl in truth.store.tree.levels],
+           "profile": profile, "launches": launches, "logit_checks": checks,
+           "card": card}
+    print(json.dumps(rec))
+    return rec, launches, truth.store, direct + truth.engine_sets
+
+
+def profile_steps(step, n: int) -> dict:
+    """Device time of ``n`` turns of the serving loop (``step()``, False
+    once drained) under torch.profiler against the wall clock; each engine
+    step ends in its argmax's host read."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    done = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        while done < n and step():
+            done += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return {"steps": done, **device_summary(prof, wall)}
+
+
+def session_shape_checks(store, sets: list) -> dict:
+    """The four descent kernels against their plain versions at phase H's
+    shapes: every non-empty level of the session index's device state as
+    it stands after H, on the id batches H looked up (the engine's, of up
+    to max_batch ids, and the direct ones).  Per kernel: the batch sizes,
+    the levels, the outputs that differ and the largest difference."""
+    import torch
+    from repro_torch.kernels import ref
+
+    cfg = store.engine.cfg
+    state = store.engine.build_state(store.tree)
+    out = {name: {"B": sorted({p.shape[0] for p in sets}), "levels": [],
+                  "sets": 0, "mismatches": 0, "max_abs_err": 0.0}
+           for name in KERNELS[:4]}
+    for li, lv in enumerate(state.levels):
+        if lv.n_files == 0:
+            continue
+        dev = lv.keys.device
+        models = (lv.starts, lv.slopes, lv.icepts, lv.nseg, lv.n)
+        level_sets = []
+        for p in sets:
+            pt = torch.from_numpy(p).to(dev)
+            rows = store.engine._find_file(lv, pt)[0].to(torch.int32)
+            level_sets.append((rows, pt, ref.plr_lookup_rows_ref(
+                *models, rows, pt)))
+        fns = {"plr_lookup": _plr_fns(models, level_sets),
+               "bounded_search": _bounded_fns(lv, level_sets, cfg.plr_delta),
+               "bloom_probe": _bloom_fns(lv, level_sets, cfg.bloom_k),
+               "sstable_search": _sstable_fns(lv, level_sets,
+                                              cfg.block_records)}
+        for name, (kern, plain) in fns.items():
+            mism, err = _compare(kern, plain, len(level_sets))
+            rec = out[name]
+            rec["levels"].append({"level": li, "F": lv.keys.shape[0],
+                                  "C": lv.keys.shape[1],
+                                  "learned": int((lv.nseg > 0).sum())})
+            rec["sets"] += len(level_sets)
+            rec["mismatches"] += mism
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    return out
+
+
 KERNELS = ("plr_lookup", "bounded_search", "bloom_probe", "sstable_search",
            "bloom_probe_stack")
 GROUP_MACROS = {"bounded_search": "BOUNDED_SEARCH_GROUP",
@@ -1617,13 +1998,13 @@ def _steps(n):
     return torch.ceil(torch.log2(n.to(torch.float64) + 1)).to(torch.int64)
 
 
-def _compare(kern, plain) -> tuple[int, float]:
+def _compare(kern, plain, n: int = TIMED_BATCHES) -> tuple[int, float]:
     """Outputs that differ, and the largest difference, of ``kern`` against
-    ``plain`` over every probe set."""
+    ``plain`` over the ``n`` probe sets."""
     import torch
     mism = 0
     err = 0.0
-    for i in range(TIMED_BATCHES):
+    for i in range(n):
         got, want = kern(i), plain(i)
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -2306,11 +2687,25 @@ def main() -> int:
         st.close()
     finally:
         shutil.rmtree(shard_dir, ignore_errors=True)
+    del st
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, launches_h, sessions, h_sets = drive_lm("cuda", args.seed, card)
+    for name in KERNELS[:4]:
+        if launches_h[name] <= 0:
+            fail(f"{name} never launched on the served LM path (H)")
+    session_shapes = session_shape_checks(sessions, h_sets)
+    for k in checks:
+        k["launches_h"] = launches_h[k["name"]]
+        k["launches"] += launches_h[k["name"]]
+        if k["name"] in session_shapes:
+            k["session_shape"] = session_shapes[k["name"]]
     for k in checks:
         other = {tag: k[tag]["mismatches"]
                  for tag in ("wide_check", "shard_shape", "level_model_shape",
                              "engine_shape", "served_shape", "mesh_shape",
-                             "mesh_dispatched_shape", "mesh_example_shape")
+                             "mesh_dispatched_shape", "mesh_example_shape",
+                             "session_shape")
                  if tag in k}
         if k["mismatches"] != 0 or any(other.values()):
             fail(f"{k['name']} disagrees with its plain version on "

@@ -25,14 +25,18 @@ rebuilds them.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from repro_torch.core.engine import resolve_device
 from repro_torch.core.filters import LevelFilter
 from repro_torch.core.lsm import N_LEVELS
 from repro_torch.core.plr import PLRModel
 from repro_torch.core.sstable import SSTable, advance_file_ids
 from repro_torch.core.store import BourbonStore, StoreConfig
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import Model, param_shapes
 
-__all__ = ["store_from_numpy"]
+__all__ = ["store_from_numpy", "params_from_numpy"]
 
 
 def _model(m: dict | None, delta: int) -> PLRModel | None:
@@ -101,3 +105,28 @@ def store_from_numpy(state: dict, cfg: StoreConfig) -> BourbonStore:
     # unlearned files re-enter the learning pipeline, as after recovery
     st._pending_wait.extend(t for t in st.tree.all_files() if t.model is None)
     return st
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig,
+                      device: str = "cuda") -> Model:
+    """The port's model holding the reference parameter ``tree`` (numpy
+    leaves, bf16 ones as float32) on ``device``."""
+    dev = resolve_device(device)
+
+    def leaf(spec, a, path):
+        a = np.asarray(a)
+        if tuple(a.shape) != tuple(spec.shape):
+            raise ValueError(f"{'/'.join(path)}: shape {a.shape}, expected "
+                             f"{spec.shape}")
+        return torch.from_numpy(np.array(a, order="C")).to(
+            device=dev, dtype=spec.dtype)
+
+    def walk(specs, sub, path=()):
+        if not isinstance(specs, dict):
+            return leaf(specs, sub, path)
+        if set(sub) != set(specs):
+            raise ValueError(f"{'/'.join(path) or 'tree'}: keys "
+                             f"{sorted(sub)}, expected {sorted(specs)}")
+        return {k: walk(specs[k], sub[k], path + (k,)) for k in specs}
+
+    return Model(cfg, walk(param_shapes(cfg), tree))

@@ -17,16 +17,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .engine import upload
+from .engine import resolve_device, upload
 
 __all__ = ["ValueLog"]
 
 
 class ValueLog:
     def __init__(self, value_size: int = 64, capacity: int = 1 << 16,
-                 device: str = "cpu") -> None:
+                 device: str = "cuda") -> None:
         self.value_size = value_size
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._buf = np.zeros((capacity, value_size), np.uint8)
         self._head = 0
         self._device = None  # lazily mirrored; invalidated on append

@@ -1,0 +1,196 @@
+"""Attention: GQA (with RoPE / bias / sliding window), its train-time
+(full-sequence) form and its decode form over a KV cache.
+
+The port of the GQA half of ``repro.models.attention``; MLA and gated
+cross-attention come with the blocks that use them (ROADMAP Queue 1, item
+7d).  Scores and softmax keep the reference's operation order and dtypes
+(scores divided by ``sqrt(hd)`` cast to the query's dtype, then the f32
+cast and the additive mask, softmax in f32 cast back to the values'
+dtype), so the products stay plain ``torch.einsum`` rather than a library
+attention call.
+
+Decode writes the caches in place (``index_copy_`` at a device index):
+the step makes no host read, and the returned cache holds the same ``k``
+and ``v`` tensors it was given.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import torch
+
+from .layers import Spec, rope, shard
+
+__all__ = ["gqa_shapes", "gqa_attention", "gqa_decode", "causal_mask"]
+
+NEG_INF = -1e30
+
+
+FLASH_THRESHOLD = 2048   # S*T above threshold^2 -> chunked online-softmax
+FLASH_KV_CHUNK = 512
+
+
+@functools.lru_cache(maxsize=None)
+def _sqrt_as(hd: int, dtype: torch.dtype) -> float:
+    """``sqrt(hd)`` rounded to ``dtype``, as a Python float."""
+    return torch.tensor(math.sqrt(hd), dtype=torch.float64).to(dtype).item()
+
+
+def _sdpa_dense(q, k, v, mask):
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    q = q.reshape(B, S, KV, g, hd)
+    scores = torch.einsum("bskgh,btkh->bkgst", q, k) / _sqrt_as(hd, q.dtype)
+    scores = scores.float() + mask
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkh->bskgh", probs, v)
+    return out.reshape(B, S, H, v.shape[-1])
+
+
+def _sdpa_chunked(q, k, v, window):
+    """Flash-style causal attention: a loop over KV chunks with online
+    softmax.  Never materializes (S, T) scores — memory O(S * chunk).
+    Assumes self-attention with S == T (train/prefill).  The reference
+    checkpoints each chunk step for its backward pass; without a gradient
+    a plain loop computes the same values."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    vd = v.shape[-1]
+    g = H // KV
+    ck = min(FLASH_KV_CHUNK, T)
+    n_chunks = T // ck
+    if T % ck:
+        raise ValueError(f"T={T} is not a multiple of the chunk {ck}")
+    dev = q.device
+    qr = q.reshape(B, S, KV, g, hd)
+    scale = 1.0 / _sqrt_as(hd, torch.float32)
+    qpos = torch.arange(S, device=dev)[:, None]
+
+    m = torch.full((B, KV, g, S), -math.inf, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, KV, g, S), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, S, KV, g, vd), dtype=torch.float32, device=dev)
+    for ci in range(n_chunks):
+        kch = k[:, ci * ck:(ci + 1) * ck]
+        vch = v[:, ci * ck:(ci + 1) * ck]
+        s = torch.einsum("bskgh,btkh->bkgst", qr, kch).float() * scale
+        kpos = ci * ck + torch.arange(ck, device=dev)[None, :]
+        ok = kpos <= qpos
+        if window is not None:
+            ok &= kpos > qpos - window
+        s = torch.where(ok, s, -math.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        # guard -inf - -inf
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.exp(s - m_safe[..., None])
+        p = torch.where(ok, p, 0.0)
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bkgst,btkh->bskgh", p.to(v.dtype), vch).float()
+        acc = acc * corr.permute(0, 3, 1, 2)[..., None] + pv
+        m = m_new
+    lt = torch.clamp(l.permute(0, 3, 1, 2)[..., None], min=1e-30)
+    out = (acc / lt).to(v.dtype)
+    return out.reshape(B, S, H, vd)
+
+
+def _sdpa(q, k, v, mask, window=None, chunked=None):
+    """q (B,S,H,hd), k (B,T,KV,hd), v (B,T,KV,vd); mask (S,T) additive or
+    None for chunked causal.  Chunked path auto-selected for long self-attn."""
+    S, T = q.shape[1], k.shape[1]
+    if chunked is None:
+        chunked = (S == T and S * T > FLASH_THRESHOLD ** 2)
+    if chunked and S == T:
+        return _sdpa_chunked(q, k, v, window)
+    return _sdpa_dense(q, k, v, mask)
+
+
+def causal_mask(S: int, T: int, window: int | None = None, device=None):
+    """(S, T) additive mask; queries at positions T-S..T-1."""
+    qpos = torch.arange(T - S, T, device=device)[:, None]
+    kpos = torch.arange(T, device=device)[None, :]
+    ok = kpos <= qpos
+    if window is not None:
+        ok &= kpos > qpos - window
+    return torch.where(ok, 0.0, NEG_INF).float()
+
+
+# ------------------------------------------------------------------------ GQA
+
+def gqa_shapes(cfg, dtype):
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    p = {
+        "wq": Spec((D, H * hd), dtype, ("embed", "heads")),
+        "wk": Spec((D, KV * hd), dtype, ("embed", "kv_heads")),
+        "wv": Spec((D, KV * hd), dtype, ("embed", "kv_heads")),
+        "wo": Spec((H * hd, D), dtype, ("heads", "embed")),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = Spec((H * hd,), dtype, ("heads",))
+        p["bk"] = Spec((KV * hd,), dtype, ("kv_heads",))
+        p["bv"] = Spec((KV * hd,), dtype, ("kv_heads",))
+    return p
+
+
+def _qkv(x, p, cfg):
+    B, S, D = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    return (q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd),
+            v.reshape(B, S, KV, hd))
+
+
+def gqa_attention(x, p, cfg, positions=None, window=None):
+    """Full-sequence causal attention. x (B,S,D)."""
+    B, S, D = x.shape
+    q, k, v = _qkv(x, p, cfg)
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    q = shard(q, ("batch", "seq", "heads", None))
+    k = shard(k, ("batch", "seq", "kv_heads", None))
+    if S * S > FLASH_THRESHOLD ** 2:
+        out = _sdpa(q, k, v, None, window=window, chunked=True)
+    else:
+        out = _sdpa(q, k, v, causal_mask(S, S, window, device=x.device),
+                    window=window)
+    out = out.reshape(B, S, cfg.n_heads * cfg.hd)
+    return out @ p["wo"]
+
+
+def gqa_decode(x, p, cfg, cache, window=None):
+    """One-token decode. x (B,1,D); cache dict with k/v (B,T,KV,hd) ring or
+    linear buffer and pos () int32, one position shared by every row of
+    the batch, as in the reference.  Writes k/v in place; returns (out,
+    cache with pos + 1)."""
+    B = x.shape[0]
+    T = cache["k"].shape[1]
+    pos = cache["pos"]
+    q, k, v = _qkv(x, p, cfg)
+    posb = pos.reshape(1, 1).expand(B, 1)
+    q = rope(q, posb, cfg.rope_theta)
+    k = rope(k, posb, cfg.rope_theta)
+    slot = (pos % T) if window is not None else torch.clamp(pos, max=T - 1)
+    idx = slot.reshape(1).long()
+    ck = cache["k"].index_copy_(1, idx, k)
+    cv = cache["v"].index_copy_(1, idx, v)
+    kpos = torch.arange(T, device=x.device)
+    if window is not None:
+        # ring buffer: valid entries are the last min(pos+1, T) writes
+        age = pos - ((pos - kpos) % T)      # absolute position of each slot
+        ok = (age >= 0) & (age >= pos - (window - 1)) & (age <= pos)
+    else:
+        ok = kpos <= pos
+    mask = torch.where(ok, 0.0, NEG_INF).float()[None, :]
+    out = _sdpa(q, ck, cv, mask)
+    out = out.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["wo"]
+    return out, {"k": ck, "v": cv, "pos": pos + 1}

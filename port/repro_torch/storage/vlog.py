@@ -32,7 +32,7 @@ __all__ = ["DurableValueLog"]
 class DurableValueLog(ValueLog):
     def __init__(self, value_size: int, dirpath: str, seg_slots: int = 1 << 12,
                  capacity: int = 1 << 16, fsync: bool = False,
-                 device: str = "cpu") -> None:
+                 device: str = "cuda") -> None:
         super().__init__(value_size, capacity, device=device)
         self.dir = dirpath
         self.seg_slots = seg_slots
@@ -173,7 +173,7 @@ class DurableValueLog(ValueLog):
     def open(cls, dirpath: str, value_size: int, seg_slots: int,
              removed: set[int], vhead: int = 0, fsync: bool = False,
              dead_by_seg: dict[int, int] | None = None,
-             device: str = "cpu") -> "DurableValueLog":
+             device: str = "cuda") -> "DurableValueLog":
         vlog = cls(value_size, dirpath, seg_slots, fsync=fsync, device=device)
         vlog.removed = set(removed)
         if dead_by_seg:

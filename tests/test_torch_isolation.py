@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of ``repro_torch`` loads
 neither ``jax`` nor ``repro``; no source under ``port/`` (nor
-``chip_smoke.py``) imports them; and the default store, which runs on the
-card, refuses to start without one instead of falling back to the CPU."""
+``chip_smoke.py``) imports them; and the default store and value logs,
+which run on the card, refuse to start without one instead of falling back
+to the CPU."""
 
 import ast
 import os
@@ -16,6 +17,8 @@ import torch  # noqa: E402
 
 from repro_torch.core import BourbonStore, StoreConfig  # noqa: E402
 from repro_torch.core.engine import EngineConfig, LookupEngine  # noqa: E402
+from repro_torch.core.valuelog import ValueLog  # noqa: E402
+from repro_torch.storage import DurableValueLog  # noqa: E402
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 PORT = os.path.join(REPO, "port")
@@ -48,7 +51,14 @@ def test_importing_every_module_loads_no_jax_or_repro():
             "repro_torch.analysis.core", "repro_torch.analysis.hotsync",
             "repro_torch.analysis.durorder", "repro_torch.analysis.pairing",
             "repro_torch.analysis.obsdrift",
-            "repro_torch.analysis.deadmod"} <= set(mods)
+            "repro_torch.analysis.deadmod", "repro_torch.serving",
+            "repro_torch.serving.session_store", "repro_torch.serving.engine",
+            "repro_torch.models", "repro_torch.models.config",
+            "repro_torch.models.layers", "repro_torch.models.attention",
+            "repro_torch.models.blocks", "repro_torch.models.model",
+            "repro_torch.configs", "repro_torch.configs.base",
+            "repro_torch.configs.qwen2_0_5b", "repro_torch.launch",
+            "repro_torch.launch.serve"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, sys
         sys.path.insert(0, {PORT!r})
@@ -96,3 +106,14 @@ def test_default_store_needs_a_card(monkeypatch):
         LookupEngine(EngineConfig())
     assert StoreConfig().engine.device == "cuda"
     assert BourbonStore(StoreConfig(device="cpu")).engine.device.type == "cpu"
+
+
+def test_value_logs_need_a_card(monkeypatch, tmp_path):
+    """The value logs take the card by default, as every other entry point
+    of the port does, and refuse without one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ValueLog()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DurableValueLog(8, str(tmp_path))
+    assert ValueLog(device="cpu").device.type == "cpu"

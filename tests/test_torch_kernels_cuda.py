@@ -28,7 +28,11 @@ level-granularity, and the sharded store — on the card and on the CPU.
 The mesh tests run the mesh GET on cuda:0 four times against the CPU four
 times, and (with two cards or more) on two distinct cards while cuda:0 is
 current, so that each kernel must launch on its own tensors' card; the
-last checks that ``mesh="auto"`` starts its mesh at the engine's card."""
+last checks that ``mesh="auto"`` starts its mesh at the engine's card.
+The serving cases run the LM serving engine on the card against the CPU
+(equal tokens on the f32 smoke config) and a 64K-session index on both,
+and check that each entry point of the serving path refuses without a
+card unless given ``device="cpu"``."""
 
 import functools
 import os
@@ -898,3 +902,108 @@ def test_auto_mesh_starts_at_engine_card(tmp_path):
         assert found[:100].all()
         assert [r["keys"].device for r in st.device_state()] == list(want)
         st.close()
+
+
+# ----------------------------------------------------------------------------
+# the LM serving path: the session index and the engine on the card
+# ----------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_serving_engine_cuda_matches_cpu():
+    """The serve launcher's workload on the f32 smoke config, on the card
+    and on the CPU from the same parameters: equal tokens, steps, page
+    pool and session-store stats."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import EngineConfig, Request, ServingEngine
+
+    cfg = get_smoke_config("qwen2-0.5b")
+    engines, reqs = [], []
+    for device in ("cpu", "cuda"):
+        params = init_params(cfg, torch.Generator().manual_seed(0),
+                             device=device)
+        eng = ServingEngine(cfg, params, EngineConfig(max_batch=4,
+                                                      max_seq=64),
+                            device=device)
+        rng = np.random.default_rng(0)
+        rs = [Request(rid=1000 + i, prompt=rng.integers(
+            0, cfg.vocab, size=rng.integers(3, 10)).astype(np.int32),
+            max_new=8) for i in range(12)]
+        for r in rs:
+            eng.submit(r)
+        eng.run_until_drained()
+        engines.append(eng)
+        reqs.append(rs)
+    cpu, card = engines
+    assert [r.generated for r in reqs[0]] == [r.generated for r in reqs[1]]
+    assert all(r.done and len(r.generated) == 8 for r in reqs[1])
+    assert card.steps == cpu.steps and card.pool.free == cpu.pool.free
+    assert card.sessions.stats() == cpu.sessions.stats()
+    assert card.caches["s0_attn_mlp"]["k"].device.type == "cuda"
+
+
+@pytest.mark.gpu
+def test_session_store_on_card_matches_cpu():
+    """~64K sessions (signed 64-bit ids, 10% evicted) answer a 512-id
+    batch, half live and half absent or evicted, on the card as on the
+    CPU, and the card's answer went through the kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from repro_torch.serving.session_store import PageRecord, SessionStore
+
+    rng = np.random.default_rng(23)
+    ids = np.unique(rng.integers(np.iinfo(np.int64).min, SENTINEL, 1 << 16,
+                                 dtype=np.int64))
+    ids = rng.permutation(ids)
+    stores = [SessionStore(policy="always", device=d) for d in ("cpu",
+                                                                 "cuda")]
+    gone = rng.choice(ids, ids.shape[0] // 10, replace=False)
+    for st in stores:
+        for off in range(0, ids.shape[0], 4096):
+            b = ids[off:off + 4096]
+            st.register_batch(b, [PageRecord(int(i) & 0xFFF, 1, 3)
+                                  for i in b])
+        st.evict_batch(gone)
+    q = np.concatenate([rng.choice(ids, 256),
+                        rng.integers(np.iinfo(np.int64).min, SENTINEL, 256,
+                                     dtype=np.int64)])
+    answers = []
+    for st in stores:
+        ops.reset_launches()
+        found, recs = st.lookup_batch(q)
+        answers.append((found, [None if r is None else r.first_page
+                                for r in recs]))
+    assert sum(ops.launches.values()) > 0
+    assert np.array_equal(answers[0][0], answers[1][0])
+    assert answers[0][1] == answers[1][1]
+    want = np.isin(q, ids) & ~np.isin(q, gone)
+    assert np.array_equal(answers[1][0], want)
+
+
+def test_serving_entry_points_refuse_without_a_card(monkeypatch):
+    """Each entry point of the serving path takes the card by default and
+    raises without one; ``device="cpu"`` runs the plain path."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.launch import serve
+    from repro_torch.models import init_caches, init_params
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.session_store import SessionStore
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("qwen2-0.5b")
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    tree = {"embed": params.tree()["embed"].numpy()}
+    for call in (lambda: SessionStore(),
+                 lambda: init_params(cfg, torch.Generator()),
+                 lambda: init_caches(cfg, 2, 8),
+                 lambda: params_from_numpy(tree, cfg),
+                 lambda: ServingEngine(cfg, params, EngineConfig()),
+                 lambda: serve.main([])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    eng = ServingEngine(cfg, params, EngineConfig(max_batch=2), device="cpu")
+    assert eng.sessions.store.engine.device.type == "cpu"
+    assert eng.caches["s0_attn_mlp"]["k"].device.type == "cpu"
