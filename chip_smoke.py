@@ -63,7 +63,7 @@
         cache, and a ``SessionStore`` index preloaded with H_SESSIONS
         (1,048,576) live background sessions: uniform signed 64-bit ids in
         register batches of 4096, 10% of each batch evicted a batch later.
-        H_REQUESTS (512) requests of 3-9 prompt tokens and 16 new
+        H_REQUESTS (256) requests of 3-9 prompt tokens and 16 new
         tokens run until drained, another 4096 background sessions
         registered every 8 engine steps (flushing the active sessions out
         of the memtable, as other engines sharing the index would); then
@@ -80,6 +80,25 @@
         ``bounded_search``, ``bloom_probe`` and ``sstable_search`` must
         have launched; then they are held against their plain versions on
         every level of the session index, on the id batches H looked up.
+     I  the served MoE/MLA model over H's session index: H's model is
+        freed, and deepseek-v2-lite-16b at full width and full depth (27
+        layers: MLA attention over its compressed cache, one dense MLP
+        layer, 26 MoE layers of 64 experts, top-6, 2 shared; 15.7B
+        parameters) in bf16 serves I_REQUESTS (256) requests like H's
+        through ``ServingEngine`` with H's engine config, registering H's
+        remaining background batches, every lookup and request checked as
+        in H, 8 engine steps profiled, and the MoE assignments dropped at
+        capacity counted (of all rows, and of the rows that carried a real
+        token).  Counts are zeroed just before I's serving and read just
+        after: the four descent kernels must have launched, and are held
+        against their plain versions on the id batches I looked up.  Then
+        I2, in f32 at full width and cut depth (deepseek 3 layers,
+        mixtral-8x22b 1, llama-3.2-vision-11b 5 with its gates at 0.5):
+        ``forward`` and 4 decode steps on the card against the CPU within
+        I_F32_TOL of the largest logit; deepseek's ``mla_decode`` step by
+        step against ``mla_attention`` within I_MLA_TOL; and deepseek in
+        bf16 against f32, the share of positions whose top-k routing
+        differs (a reading, no bound).
    After the timed batches of C, D, E and G, 4 of the phase's batches
    replay through its dispatch half (``BourbonStore.dispatch_get`` in C,
    ``ShardedStore.dispatch_get`` in D and G, and in E shard 0's
@@ -102,10 +121,11 @@
    tables and phase E's one-row level model; ``bounded_search`` also at
    δ = 40 and ``bloom_probe`` at k = 12; the three kernels of phase F also
    at the batch sizes F dispatched, on its probes; the four descent
-   kernels also at phase H's session index), times both with CUDA
-   events and torch.profiler, and computes the kernel's lower bound from
-   the bytes its probes must gather and the per-launch floor (the device
-   time of one trivial PyTorch kernel over 4096 elements).
+   kernels also at phase H's session index, on H's and on I's batches),
+   times both with CUDA events and torch.profiler, and computes the
+   kernel's lower bound from the bytes its probes must gather and the
+   per-launch floor (the device time of one trivial PyTorch kernel over
+   4096 elements).
 5. With ``--first-version DIR`` (a directory holding earlier sources of
    any of the five kernels, ``<name>.cu``): builds them into a library of
    their own and times each against its current build in turns (first,
@@ -1630,7 +1650,7 @@ H_ARCH = "qwen2-0.5b"     # the arch of launch/serve.py and the serving test
 H_SESSIONS = 1 << 20      # live background sessions preloaded in the index
 H_REG_BATCH = 4096        # sessions a register_batch
 H_EVICT = 410             # of each register batch, evicted a batch later
-H_REQUESTS = 512
+H_REQUESTS = 256
 H_MAX_NEW = 16
 H_BG_EVERY = 8            # engine steps between background register batches
 H_DIRECT = 32             # direct lookup_batch calls of H_REG_BATCH ids
@@ -1655,11 +1675,11 @@ class SessionTruth:
     ids evicted -> (first_page, n_pages, prefix_len).  Stands in for the
     engine's ``SessionStore``: registers and evictions go through to the
     store and update the dict, and every lookup's answer is checked against
-    it (a miss fails the run).  Keeps up to TIMED_BATCHES of the id
-    batches the engine looked up, for the kernel checks."""
+    it (a miss fails the run, naming ``phase``).  Keeps up to TIMED_BATCHES
+    of the id batches the engine looked up, for the kernel checks."""
 
     def __init__(self, inner):
-        self.inner = inner
+        self.inner, self.phase = inner, "H"
         self.live = {}
         self.lookups = self.ids_checked = 0
         self.engine_sets = []
@@ -1680,7 +1700,7 @@ class SessionTruth:
 
     def lookup_batch(self, ids):
         found, recs = self.inner.lookup_batch(ids)
-        self.check("H engine lookup", ids, found, recs)
+        self.check(f"{self.phase} engine lookup", ids, found, recs)
         if len(self.engine_sets) < TIMED_BATCHES:
             self.engine_sets.append(np.array(ids, np.int64))
         return found, recs
@@ -1760,6 +1780,82 @@ def lm_logit_checks(params, cfg, seed: int, device: str) -> dict:
     return out
 
 
+def serve_requests(eng, truth: SessionTruth, reqs: list, batches, b0: int,
+                   tag: str) -> dict:
+    """Serves ``reqs`` through ``eng`` until drained, registering the next
+    id batch of ``batches`` (records numbered from ``b0``) as background
+    sessions every H_BG_EVERY engine steps (flushing the active sessions
+    out of the memtable, as other engines sharing the index would), with
+    H_PROFILE_STEPS loop turns from engine step H_PROFILE_AT under
+    torch.profiler on the card.  Launch counts are zeroed just before the
+    serving loop.  Every request must finish with H_MAX_NEW tokens of the
+    vocabulary and every page return to the pool."""
+    import torch
+    from repro_torch.kernels import ops
+
+    on_card = eng.device.type == "cuda"
+    for r in reqs:
+        eng.submit(r)
+    n_bg = 0
+
+    def serve_step() -> bool:
+        """One turn of the serving loop: a background register batch every
+        H_BG_EVERY engine steps, then an engine step; False once
+        drained."""
+        nonlocal n_bg
+        if not (eng.queue or eng.active):
+            return False
+        if eng.steps and eng.steps % H_BG_EVERY == 0:
+            ids = next(batches)
+            truth.register_batch(ids, _records(ids, b0 + n_bg))
+            n_bg += 1
+        eng.step()
+        return True
+
+    profile = None
+    lookups0 = truth.lookups
+    if on_card:
+        torch.cuda.synchronize()
+    ops.reset_launches()                      # the main path starts here
+    t0 = time.perf_counter()
+    while eng.queue or eng.active:
+        if on_card and eng.steps == H_PROFILE_AT:
+            profile = profile_steps(serve_step, H_PROFILE_STEPS)
+            profile["first_step"] = H_PROFILE_AT
+        else:
+            serve_step()
+    serve_s = time.perf_counter() - t0
+
+    vocab, n_pages = eng.cfg.vocab, eng.ecfg.n_pages
+    for r in reqs:
+        if not r.done or len(r.generated) != H_MAX_NEW:
+            fail(f"phase {tag}: request {r.rid} done={r.done} with "
+                 f"{len(r.generated)} tokens")
+        if not all(0 <= t < vocab for t in r.generated):
+            fail(f"phase {tag}: request {r.rid} generated a token outside "
+                 f"the vocabulary")
+    if sorted(eng.pool.free) != list(range(n_pages)):
+        fail(f"phase {tag}: pages missing from the pool after draining")
+    prefill = sum(int(r.prompt.shape[0]) for r in reqs)
+    generated = sum(len(r.generated) for r in reqs)
+    return {"requests": len(reqs), "max_new": H_MAX_NEW,
+            "prefill_steps": prefill, "engine_steps": eng.steps,
+            "generated_tokens": generated, "serve_s": serve_s,
+            "generated_tokens_per_s": generated / serve_s,
+            "engine_steps_per_s": eng.steps / serve_s,
+            "decode_steps_per_s": (prefill + eng.steps) / serve_s,
+            "background_batches_while_serving": n_bg,
+            "engine_lookups": truth.lookups - lookups0, "profile": profile}
+
+
+def _model_bytes(params, eng) -> dict:
+    return {"param_bytes": sum(p.numel() * p.element_size()
+                               for p in params.parameters()),
+            "cache_bytes": sum(t.numel() * t.element_size()
+                               for c in eng.caches.values()
+                               for t in c.values())}
+
+
 def drive_lm(device: str, seed: int, card: str, n_sessions: int = H_SESSIONS,
              n_requests: int = H_REQUESTS, arch_cfg=None,
              ecfg: dict | None = None) -> tuple:
@@ -1769,8 +1865,10 @@ def drive_lm(device: str, seed: int, card: str, n_sessions: int = H_SESSIONS,
     H_ENGINE) over a session index preloaded with ``n_sessions`` live
     background sessions; then H_DIRECT direct lookups.  Counts are zeroed
     just before the serving and read after the direct lookups.  Returns
-    the H record (also printed), the launch counts, the session store and
-    the probe sets for :func:`session_shape_checks`."""
+    the H record (also printed), the launch counts, the session index
+    (its ``SessionTruth``), the probe sets for
+    :func:`session_shape_checks`, and the background id batches left with
+    the number of the next."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -1816,43 +1914,12 @@ def drive_lm(device: str, seed: int, card: str, n_sessions: int = H_SESSIONS,
         fail(f"phase H: {n_live0} live sessions after the preload")
 
     prng = np.random.default_rng(seed)
-    reqs = []
-    for i in range(n_requests):
-        prompt = prng.integers(0, cfg.vocab, size=prng.integers(3, 10)
-                               ).astype(np.int32)
-        reqs.append(Request(rid=int(rids[i]), prompt=prompt,
-                            max_new=H_MAX_NEW))
-        eng.submit(reqs[-1])
-    n_bg = 0
-
-    def serve_step() -> bool:
-        """One turn of the serving loop: a background register batch every
-        H_BG_EVERY engine steps, then an engine step; False once
-        drained."""
-        nonlocal n_bg
-        if not (eng.queue or eng.active):
-            return False
-        if eng.steps and eng.steps % H_BG_EVERY == 0:
-            ids = next(batches)
-            truth.register_batch(ids, _records(ids, n_batches + n_bg))
-            n_bg += 1
-        eng.step()
-        return True
-
-    profile = None
-    lookups0 = truth.lookups
-    if on_card:
-        torch.cuda.synchronize()
-    ops.reset_launches()                      # the main path starts here
-    t0 = time.perf_counter()
-    while eng.queue or eng.active:
-        if on_card and eng.steps == H_PROFILE_AT:
-            profile = profile_steps(serve_step, H_PROFILE_STEPS)
-            profile["first_step"] = H_PROFILE_AT
-        else:
-            serve_step()
-    serve_s = time.perf_counter() - t0
-    engine_lookups = truth.lookups - lookups0
+    reqs = [Request(rid=int(rids[i]),
+                    prompt=prng.integers(0, cfg.vocab,
+                                         size=prng.integers(3, 10)
+                                         ).astype(np.int32),
+                    max_new=H_MAX_NEW) for i in range(n_requests)]
+    served = serve_requests(eng, truth, reqs, batches, n_batches, "H")
 
     live = np.fromiter(truth.live.keys(), np.int64, len(truth.live))
     direct, secs = [], []
@@ -1867,41 +1934,20 @@ def drive_lm(device: str, seed: int, card: str, n_sessions: int = H_SESSIONS,
         direct.append(q)
     launches = dict(ops.launches)             # read just after the lookups
 
-    for r in reqs:
-        if not r.done or len(r.generated) != H_MAX_NEW:
-            fail(f"phase H: request {r.rid} done={r.done} with "
-                 f"{len(r.generated)} tokens")
-        if not all(0 <= t < cfg.vocab for t in r.generated):
-            fail(f"phase H: request {r.rid} generated a token outside the "
-                 f"vocabulary")
-    if sorted(eng.pool.free) != list(range(ecfg.n_pages)):
-        fail("phase H: pages missing from the pool after draining")
     if truth.store.n_gets == 0:
         fail("phase H: the session store served no lookups")
     checks = lm_logit_checks(params, cfg, seed, device)
     st = truth.stats()
-    prefill = sum(int(r.prompt.shape[0]) for r in reqs)
-    generated = sum(len(r.generated) for r in reqs)
-    param_bytes = sum(p.numel() * p.element_size()
-                      for p in params.parameters())
-    cache_bytes = sum(t.numel() * t.element_size()
-                      for c in eng.caches.values() for t in c.values())
+    n_bg = served["background_batches_while_serving"]
     rec = {"phase": "H", "arch": cfg.name, "dtype": cfg.dtype,
-           "params": cfg.param_count(), "param_bytes": param_bytes,
-           "cache_bytes": cache_bytes, "engine": dataclasses.asdict(ecfg),
+           "params": cfg.param_count(), **_model_bytes(params, eng),
+           "engine": dataclasses.asdict(ecfg),
            "device_max_bytes": (torch.cuda.max_memory_allocated()
                                 if on_card else 0),
-           "requests": n_requests, "max_new": H_MAX_NEW,
-           "prefill_steps": prefill, "engine_steps": eng.steps,
-           "generated_tokens": generated, "serve_s": serve_s,
-           "generated_tokens_per_s": generated / serve_s,
-           "engine_steps_per_s": eng.steps / serve_s,
-           "decode_steps_per_s": (prefill + eng.steps) / serve_s,
+           **served,
            "preload_s": preload_s, "preload_batches": n_batches,
            "sessions_live_after_preload": n_live0,
            "sessions_evicted_in_preload": (n_batches - 1) * H_EVICT,
-           "background_batches_while_serving": n_bg,
-           "engine_lookups": engine_lookups,
            "direct_lookups": H_DIRECT, "direct_batch": H_REG_BATCH,
            "session_lookups_per_s": H_DIRECT * H_REG_BATCH / sum(secs),
            "direct_batch_ms_median": 1e3 * sorted(secs)[len(secs) // 2],
@@ -1911,10 +1957,323 @@ def drive_lm(device: str, seed: int, card: str, n_sessions: int = H_SESSIONS,
            "files_per_level": [len(lvl) for lvl in truth.store.tree.levels],
            "learned_per_level": [sum(t.model is not None for t in lvl)
                                  for lvl in truth.store.tree.levels],
-           "profile": profile, "launches": launches, "logit_checks": checks,
-           "card": card}
+           "launches": launches, "logit_checks": checks, "card": card}
     print(json.dumps(rec))
-    return rec, launches, truth.store, direct + truth.engine_sets
+    return (rec, launches, truth, direct + truth.engine_sets,
+            (batches, n_batches + n_bg))
+
+
+# ----------------------------------------------------------------------------
+# the MoE / MLA model served over the same session index (phase I)
+# ----------------------------------------------------------------------------
+
+I_ARCH = "deepseek-v2-lite-16b"   # MLA + MoE; fits one card at full depth
+I_REQUESTS = 256
+# I2's cut depths: deepseek 3 layers (the dense prologue and two MoE
+# layers), mixtral 1, llama-3.2-vision 5 (four self- and one
+# cross-attention layer)
+I_UNITS = {"deepseek-v2-lite-16b": 2, "mixtral-8x22b": 1,
+           "llama-3.2-vision-11b": 1}
+I_GATE = 0.5            # cross-attention gates (0 at init: the identity)
+I_CHECK_B, I_CHECK_S, I_CHECK_STEPS = 4, 8, 4
+I_MLA_T = 32            # mla_decode steps against mla_attention
+# Set from readings on an H100 (seed 0; f32 matmuls run without TF32, so
+# what differs is the order of the sums): the card's f32 against the CPU's
+# read 1.5e-6 (deepseek decode) to 4.1e-6 (llama-3.2-vision forward) of
+# the largest logit, and mla_decode against mla_attention 4.5e-7 of its
+# largest output.  2^-15 is 7.4x the largest of the six card/CPU readings,
+# 2^-18 8.5x the MLA one.
+I_F32_TOL = 2.0 ** -15  # of the largest logit: card f32 vs CPU f32
+I_MLA_TOL = 2.0 ** -18  # of the largest output: mla_decode vs mla_attention
+
+
+class DropCount:
+    """While installed on a ``ServingEngine``: per decode call, each MoE
+    layer's keep mask (``moe.route``'s, held as it is: no device op and no
+    host read in the serving loop; reduced by ``summary`` after it), and
+    which rows carried a real token — the slot being prefilled while the
+    engine admits, else the active slots; every other row decodes token 0,
+    as in the reference's prefill."""
+
+    def __init__(self, eng, top_k: int):
+        self.eng, self.K = eng, top_k
+        self.cur, self.calls = [], []
+        self.admitting = False
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.route = moe, moe.route
+        eng = self.eng
+        admit, decode = eng._admit, eng._decode
+
+        def route(xg, router, K, C):
+            out = self.route(xg, router, K, C)
+            self.cur.append(out[3])
+            return out
+
+        def admit_():
+            self.admitting = True
+            try:
+                admit()
+            finally:
+                self.admitting = False
+
+        def decode_(tok):
+            logits = decode(tok)
+            rows = (eng._slot_rid.index(next(reversed(eng.active)))
+                    if self.admitting else tuple(eng._slot_rid))
+            self.calls.append((rows, self.cur))
+            self.cur = []
+            return logits
+
+        moe.route, eng._admit, eng._decode = route, admit_, decode_
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+        del self.eng._admit, self.eng._decode
+
+    def summary(self, n_prefill: int) -> dict:
+        """Dropped shares: of every assignment, of the real tokens' (the
+        first ``n_prefill`` calls are the prefill's), and the real tokens
+        that lost at least one assignment in some layer."""
+        import torch
+        kept = torch.stack([torch.stack(k) for _, k in self.calls])
+        N, L = kept.shape[:2]                         # (N, L, G, tg*K)
+        kept = kept.reshape(N, L, -1, self.K).sum(dim=-1).cpu()  # (N, L, B)
+        B = kept.shape[2]
+        real = torch.zeros(N, B, dtype=torch.bool)
+        for i, (rows, _) in enumerate(self.calls):
+            real[i, ([rows] if isinstance(rows, int) else
+                     [s for s, r in enumerate(rows) if r is not None])] = True
+        dropped = self.K - kept
+        out = {"decode_calls": N, "moe_layers": L, "rows": B,
+               "top_k": self.K, "dropped": int(dropped.sum()),
+               "drop_share": float(dropped.sum()) / (N * L * B * self.K)}
+        for tag, sl in (("real", slice(None)), ("prefill", slice(0, n_prefill)),
+                        ("decode", slice(n_prefill, None))):
+            r = real[sl]
+            d = dropped[sl].permute(0, 2, 1)[r]                # (n, L)
+            n = int(r.sum())
+            out[f"{tag}_tokens"] = n
+            out[f"{tag}_drop_share"] = (float(d.sum()) / (n * L * self.K)
+                                        if n else None)
+            out[f"{tag}_tokens_with_a_drop"] = int((d.sum(1) > 0).sum())
+        return out
+
+
+def drive_moe(truth: SessionTruth, left: tuple, seed: int, card: str,
+              device: str, arch_cfg=None, ecfg: dict | None = None,
+              n_requests: int = I_REQUESTS) -> tuple:
+    """Phase I1: ``arch_cfg`` (default: I_ARCH at full width and depth in
+    bf16) from ``init_params`` with a generator seeded ``seed`` serves
+    ``n_requests`` requests through ``ServingEngine`` (``ecfg``, default
+    H_ENGINE) over phase H's session index ``truth``, registering H's
+    ``left`` background batches.  Counts are zeroed just before the serving
+    and read just after.  Returns the I record (also printed), the launch
+    counts and the id batches the engine looked up."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import EngineConfig, Request, ServingEngine
+
+    on_card = device != "cpu"
+    cfg = arch_cfg or get_config(I_ARCH)
+    ecfg = EngineConfig(**(ecfg or H_ENGINE))
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(seed),
+                         device=device)
+    if on_card:
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng = ServingEngine(cfg, params, ecfg, session_policy="always",
+                        device=device)
+    eng.sessions = truth                      # phase H's index
+    truth.phase, truth.engine_sets = "I", []
+    ids_checked0, live0 = truth.ids_checked, len(truth.live)
+    prng = np.random.default_rng(seed + 13)
+    rids = np.unique(prng.integers(np.iinfo(np.int64).min,
+                                   np.iinfo(np.int64).max, 2 * n_requests,
+                                   dtype=np.int64))
+    rids = prng.permutation(rids[[int(i) not in truth.live
+                                  for i in rids.tolist()]])[:n_requests]
+    reqs = [Request(rid=int(rids[i]),
+                    prompt=prng.integers(0, cfg.vocab,
+                                         size=prng.integers(3, 10)
+                                         ).astype(np.int32),
+                    max_new=H_MAX_NEW) for i in range(n_requests)]
+    with DropCount(eng, cfg.top_k) as drops:
+        served = serve_requests(eng, truth, reqs, *left, "I")
+    launches = dict(ops.launches)             # read just after the serving
+    st = truth.stats()
+    rec = {"phase": "I", "arch": cfg.name, "dtype": cfg.dtype,
+           "layers": cfg.n_layers, "params": cfg.param_count(),
+           "active_params": cfg.active_param_count(),
+           **_model_bytes(params, eng), "init_s": init_s,
+           "engine": dataclasses.asdict(ecfg),
+           "device_max_bytes": (torch.cuda.max_memory_allocated()
+                                if on_card else 0),
+           **served, "moe": drops.summary(served["prefill_steps"]),
+           "sessions_live_before": live0,
+           "ids_checked": truth.ids_checked - ids_checked0,
+           "model_path_frac": st["model_path_frac"],
+           "files_per_level": [len(lvl) for lvl in truth.store.tree.levels],
+           "launches": launches, "card": card}
+    print(json.dumps(rec))
+    return rec, launches, truth.engine_sets
+
+
+def _cut(arch: str, dtype: str = "float32"):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), n_units=I_UNITS[arch],
+                               dtype=dtype)
+
+
+def _set_gates(params) -> None:
+    """Every gate leaf (cross-attention and its MLP's) to I_GATE."""
+    for name, p in params.named_parameters():
+        if "gate" in name:
+            p.data.fill_(I_GATE)
+
+
+def _run(params, cfg, toks, aux: dict, steps: int, device: str):
+    """``forward`` over ``toks`` and ``steps`` decode steps of its first
+    tokens: (forward logits, decode logits), float32 on the CPU."""
+    import torch
+    from repro_torch.models import decode_step, forward, init_caches
+
+    aux = {k: v.to(device) for k, v in aux.items()}
+    full = forward(params, cfg, tokens=toks.to(device), aux=aux)[0]
+    caches = init_caches(cfg, toks.shape[0], toks.shape[1], device=device)
+    dec = torch.cat([decode_step(params, cfg, caches,
+                                 tokens=toks[:, i:i + 1].to(device),
+                                 aux=aux)[0] for i in range(steps)], dim=1)
+    return full.float().cpu(), dec.float().cpu()
+
+
+def _err(got, want) -> dict:
+    import torch
+    return {"max_abs_err": float((got - want).abs().max()),
+            "logit_scale": float(want.abs().max()),
+            "finite": bool(torch.isfinite(got).all())}
+
+
+def moe_logit_readings(seed: int, device: str) -> dict:
+    """Phase I2 at full width, cut depth (I_UNITS), float32 unless named:
+    per arch the card's ``forward`` over I_CHECK_B x I_CHECK_S tokens and
+    its first I_CHECK_STEPS decode steps against the same port on the CPU
+    from the same parameters (llama-3.2-vision's gates at I_GATE, random
+    image embeddings); deepseek's ``mla_decode`` of its first layer, step
+    by step over I_MLA_T tokens, against ``mla_attention``; and deepseek
+    in bf16 against f32 on the card: the logits, and the share of (layer,
+    token) positions whose top-k experts differ."""
+    import torch
+    from repro_torch.models import Model, init_params
+    from repro_torch.models import attention as att
+    from repro_torch.models import moe
+
+    def init(cfg, i):
+        return init_params(cfg, torch.Generator(device=device).manual_seed(
+            seed + 100 + i), device=device)
+
+    out = {}
+    for i, arch in enumerate(I_UNITS):
+        cfg = _cut(arch)
+        t0 = time.perf_counter()
+        params = init(cfg, i)
+        _set_gates(params)
+        rng = np.random.default_rng(seed + 200 + i)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (
+            I_CHECK_B, I_CHECK_S)).astype(np.int32))
+        aux = ({"image_embed": torch.from_numpy(rng.standard_normal(
+            (I_CHECK_B, cfg.n_image_tokens, cfg.d_model)).astype(
+                np.float32))} if cfg.n_image_tokens else {})
+        with torch.inference_mode():
+            card = _run(params, cfg, toks, aux, I_CHECK_STEPS, device)
+            cpu = _run(Model(cfg, _float_copy(params.tree())), cfg, toks,
+                       aux, I_CHECK_STEPS, "cpu")
+            rec = {"layers": cfg.n_layers, "params": cfg.param_count(),
+                   "forward": _err(card[0], cpu[0]),
+                   "decode": _err(card[1], cpu[1])}
+            if cfg.mla:
+                p = params.blocks[0].p["attn"]
+                x = torch.from_numpy(rng.standard_normal(
+                    (2, I_MLA_T, cfg.d_model)).astype(np.float32)).to(device)
+                full = att.mla_attention(x, p, cfg)
+                c = {"c_kv": torch.zeros(2, I_MLA_T, cfg.kv_lora_rank,
+                                         device=device),
+                     "k_rope": torch.zeros(2, I_MLA_T, cfg.qk_rope_dim,
+                                           device=device),
+                     "pos": torch.zeros((), dtype=torch.int32,
+                                        device=device)}
+                steps = []
+                for t in range(I_MLA_T):
+                    o, c = att.mla_decode(x[:, t:t + 1], p, cfg, c)
+                    steps.append(o)
+                rec["mla_decode_vs_attention"] = _err(
+                    torch.cat(steps, 1).cpu(), full.cpu())
+                # init_params draws in f32 and casts: the same draws
+                rec["bf16_vs_f32"] = _routing_readings(
+                    params, init(_cut(arch, "bfloat16"), i), toks.to(device),
+                    moe)
+        rec["s"] = time.perf_counter() - t0
+        out[arch] = rec
+        del params
+        gc.collect()
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _routing_readings(p32, p16, toks, moe) -> dict:
+    """``forward`` of ``p16`` against ``p32`` on ``toks``: the logits and
+    the share of (layer, token) positions whose top-k experts differ."""
+    import torch
+    from repro_torch.models import forward
+
+    def routed(params):
+        seen, real = [], moe.route
+
+        def spy(xg, router, K, C):
+            r = real(xg, router, K, C)
+            seen.append(torch.sort(r[1], dim=-1).values)
+            return r
+        moe.route = spy
+        try:
+            logits = forward(params, params.cfg, tokens=toks)[0].float().cpu()
+        finally:
+            moe.route = real
+        return logits, torch.stack(seen).cpu()
+
+    l32, r32 = routed(p32)
+    l16, r16 = routed(p16)
+    differ = (r32 != r16).any(dim=-1)
+    return {**_err(l16, l32), "positions": int(differ.numel()),
+            "routing_differs": int(differ.sum()),
+            "routing_differs_share": float(differ.float().mean())}
+
+
+def moe_logit_checks(seed: int, device: str) -> dict:
+    """:func:`moe_logit_readings`, the card's f32 within I_F32_TOL of the
+    CPU's largest logit and ``mla_decode`` within I_MLA_TOL of
+    ``mla_attention``'s largest output."""
+    out = moe_logit_readings(seed, device)
+    for arch, rec in out.items():
+        for tag, tol in (("forward", I_F32_TOL), ("decode", I_F32_TOL),
+                         ("mla_decode_vs_attention", I_MLA_TOL)):
+            if tag not in rec:
+                continue
+            r = rec[tag]
+            r["tol"] = tol * r["logit_scale"]
+            if not r["finite"] or r["max_abs_err"] > r["tol"]:
+                fail(f"phase I2: {arch} {tag} differs by {r['max_abs_err']} "
+                     f"(tolerance {r['tol']})")
+    out["shape"] = {"B": I_CHECK_B, "S": I_CHECK_S, "steps": I_CHECK_STEPS,
+                    "mla_T": I_MLA_T, "gate": I_GATE}
+    return out
 
 
 def profile_steps(step, n: int) -> dict:
@@ -2690,22 +3049,39 @@ def main() -> int:
     del st
     gc.collect()
     torch.cuda.empty_cache()
-    _, launches_h, sessions, h_sets = drive_lm("cuda", args.seed, card)
+    _, launches_h, sessions, h_sets, left = drive_lm("cuda", args.seed, card)
     for name in KERNELS[:4]:
         if launches_h[name] <= 0:
             fail(f"{name} never launched on the served LM path (H)")
-    session_shapes = session_shape_checks(sessions, h_sets)
+    session_shapes = session_shape_checks(sessions.store, h_sets)
     for k in checks:
         k["launches_h"] = launches_h[k["name"]]
         k["launches"] += launches_h[k["name"]]
         if k["name"] in session_shapes:
             k["session_shape"] = session_shapes[k["name"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, launches_i, i_sets = drive_moe(sessions, left, args.seed, card, "cuda")
+    for name in KERNELS[:4]:
+        if launches_i[name] <= 0:
+            fail(f"{name} never launched on the served MoE path (I)")
+    i_shapes = session_shape_checks(sessions.store, i_sets)
+    for k in checks:
+        k["launches_i"] = launches_i[k["name"]]
+        k["launches"] += launches_i[k["name"]]
+        if k["name"] in i_shapes:
+            k["session_shape_i"] = i_shapes[k["name"]]
+    del sessions, left
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "I2", **moe_logit_checks(args.seed, "cuda"),
+                      "card": card}))
     for k in checks:
         other = {tag: k[tag]["mismatches"]
                  for tag in ("wide_check", "shard_shape", "level_model_shape",
                              "engine_shape", "served_shape", "mesh_shape",
                              "mesh_dispatched_shape", "mesh_example_shape",
-                             "session_shape")
+                             "session_shape", "session_shape_i")
                  if tag in k}
         if k["mismatches"] != 0 or any(other.values()):
             fail(f"{k['name']} disagrees with its plain version on "

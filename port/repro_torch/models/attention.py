@@ -1,17 +1,17 @@
-"""Attention: GQA (with RoPE / bias / sliding window), its train-time
-(full-sequence) form and its decode form over a KV cache.
+"""Attention variants: GQA (with RoPE / bias / sliding window), MLA
+(DeepSeek-V2 latent compression), and gated cross-attention (Llama-3.2
+vision).  Each has a train-time (full-sequence) form and a decode form over
+a KV cache.
 
-The port of the GQA half of ``repro.models.attention``; MLA and gated
-cross-attention come with the blocks that use them (ROADMAP Queue 1, item
-7d).  Scores and softmax keep the reference's operation order and dtypes
-(scores divided by ``sqrt(hd)`` cast to the query's dtype, then the f32
-cast and the additive mask, softmax in f32 cast back to the values'
-dtype), so the products stay plain ``torch.einsum`` rather than a library
-attention call.
+The port of ``repro.models.attention``.  Scores and softmax keep the
+reference's operation order and dtypes (scores divided by ``sqrt(hd)``
+cast to the query's dtype, then the f32 cast and the additive mask,
+softmax in f32 cast back to the values' dtype), so the products stay plain
+``torch.einsum`` rather than a library attention call.
 
 Decode writes the caches in place (``index_copy_`` at a device index):
-the step makes no host read, and the returned cache holds the same ``k``
-and ``v`` tensors it was given.
+the step makes no host read, and the returned cache holds the same cache
+tensors it was given.
 """
 
 from __future__ import annotations
@@ -21,9 +21,11 @@ import math
 
 import torch
 
-from .layers import Spec, rope, shard
+from .layers import Spec, rms_norm, rope, shard
 
-__all__ = ["gqa_shapes", "gqa_attention", "gqa_decode", "causal_mask"]
+__all__ = ["gqa_shapes", "gqa_attention", "gqa_decode",
+           "mla_shapes", "mla_attention", "mla_decode",
+           "cross_attn_shapes", "cross_attention", "causal_mask"]
 
 NEG_INF = -1e30
 
@@ -36,6 +38,13 @@ FLASH_KV_CHUNK = 512
 def _sqrt_as(hd: int, dtype: torch.dtype) -> float:
     """``sqrt(hd)`` rounded to ``dtype``, as a Python float."""
     return torch.tensor(math.sqrt(hd), dtype=torch.float64).to(dtype).item()
+
+
+@functools.lru_cache(maxsize=None)
+def _inv_sqrt_f32(hd: int) -> float:
+    """``1 / f32(sqrt(hd))`` divided in float32, as a Python float (exact
+    in float32, so a product with it rounds as the reference's does)."""
+    return (1.0 / torch.tensor(_sqrt_as(hd, torch.float32))).item()
 
 
 def _sdpa_dense(q, k, v, mask):
@@ -66,7 +75,7 @@ def _sdpa_chunked(q, k, v, window):
         raise ValueError(f"T={T} is not a multiple of the chunk {ck}")
     dev = q.device
     qr = q.reshape(B, S, KV, g, hd)
-    scale = 1.0 / _sqrt_as(hd, torch.float32)
+    scale = _inv_sqrt_f32(hd)
     qpos = torch.arange(S, device=dev)[:, None]
 
     m = torch.full((B, KV, g, S), -math.inf, dtype=torch.float32, device=dev)
@@ -194,3 +203,107 @@ def gqa_decode(x, p, cfg, cache, window=None):
     out = _sdpa(q, ck, cv, mask)
     out = out.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["wo"]
     return out, {"k": ck, "v": cv, "pos": pos + 1}
+
+
+# ------------------------------------------------------------------------ MLA
+
+def mla_shapes(cfg, dtype):
+    """DeepSeek-V2 multi-head latent attention (no q-lora in the Lite cfg)."""
+    D, H = cfg.d_model, cfg.n_heads
+    nope, rpe, vd, r = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    return {
+        "wq": Spec((D, H * (nope + rpe)), dtype, ("embed", "heads")),
+        "wkv_a": Spec((D, r + rpe), dtype, ("embed", "lora")),
+        "kv_norm": Spec((r,), torch.float32, ("lora",)),
+        "wkv_b": Spec((r, H * (nope + vd)), dtype, ("lora", "heads")),
+        "wo": Spec((H * vd, D), dtype, ("heads", "embed")),
+    }
+
+
+def mla_attention(x, p, cfg, positions=None):
+    B, S, D = x.shape
+    H = cfg.n_heads
+    nope, rpe, vd, r = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    q = (x @ p["wq"]).reshape(B, S, H, nope + rpe)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    kv = x @ p["wkv_a"]                              # (B,S,r+rpe)
+    c_kv = rms_norm(kv[..., :r], p["kv_norm"], cfg.norm_eps)
+    k_rope = rope(kv[..., None, r:], positions, cfg.rope_theta)  # (B,S,1,rpe)
+    kvb = (c_kv @ p["wkv_b"]).reshape(B, S, H, nope + vd)
+    k_nope, v = kvb[..., :nope], kvb[..., nope:]
+    k_rope_b = k_rope.expand(B, S, H, rpe)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope_b], dim=-1)
+    if S * S > FLASH_THRESHOLD ** 2:
+        out = _sdpa(q_full, k_full, v, None, chunked=True)   # H == KV here
+    else:
+        out = _sdpa(q_full, k_full, v, causal_mask(S, S, device=x.device))
+    out = out.reshape(B, S, H * vd)
+    return out @ p["wo"]
+
+
+def mla_decode(x, p, cfg, cache):
+    """Decode with the *compressed* cache: (c_kv (B,T,r), k_rope (B,T,rpe))
+    and pos () int32, one position shared by every row of the batch, as in
+    the reference; a write past T lands in slot T-1.  Writes c_kv and
+    k_rope in place; returns (out, cache with pos + 1)."""
+    B = x.shape[0]
+    H = cfg.n_heads
+    nope, rpe, vd, r = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    T = cache["c_kv"].shape[1]
+    pos = cache["pos"]
+    posb = pos.reshape(1, 1).expand(B, 1)
+    q = (x @ p["wq"]).reshape(B, 1, H, nope + rpe)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = rope(q_rope, posb, cfg.rope_theta)
+    kv = x @ p["wkv_a"]
+    c_new = rms_norm(kv[..., :r], p["kv_norm"], cfg.norm_eps)
+    k_rope_new = rope(kv[..., None, r:], posb, cfg.rope_theta)[:, :, 0, :]
+    idx = torch.clamp(pos, max=T - 1).reshape(1).long()
+    c_kv = cache["c_kv"].index_copy_(1, idx, c_new)
+    kr = cache["k_rope"].index_copy_(1, idx, k_rope_new)
+    # absorbed attention: score = q_nope . (c @ Wb_k) + q_rope . k_rope
+    wkv_b = p["wkv_b"].reshape(r, H, nope + vd)
+    wb_k, wb_v = wkv_b[..., :nope], wkv_b[..., nope:]
+    q_lat = torch.einsum("bohn,rhn->bohr", q_nope, wb_k)     # (B,1,H,r)
+    s_lat = torch.einsum("bohr,btr->bhot", q_lat, c_kv)
+    s_rope = torch.einsum("bohp,btp->bhot", q_rope, kr)
+    scores = (s_lat + s_rope).float() * _inv_sqrt_f32(nope + rpe)
+    ok = torch.arange(T, device=x.device) <= pos
+    scores = scores + torch.where(ok, 0.0, NEG_INF).float()
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    o_lat = torch.einsum("bhot,btr->bohr", probs, c_kv)      # (B,1,H,r)
+    out = torch.einsum("bohr,rhv->bohv", o_lat, wb_v)
+    out = out.reshape(B, 1, H * vd) @ p["wo"]
+    return out, {"c_kv": c_kv, "k_rope": kr, "pos": pos + 1}
+
+
+# ----------------------------------------------------------------- cross-attn
+
+def cross_attn_shapes(cfg, dtype):
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    return {
+        "wq": Spec((D, H * hd), dtype, ("embed", "heads")),
+        "wk": Spec((D, KV * hd), dtype, ("embed", "kv_heads")),
+        "wv": Spec((D, KV * hd), dtype, ("embed", "kv_heads")),
+        "wo": Spec((H * hd, D), dtype, ("heads", "embed")),
+        "gate": Spec((1,), torch.float32, (None,)),
+    }
+
+
+def cross_attention(x, kv_src, p, cfg):
+    """Gated cross-attention (Llama-3.2 vision).  kv_src (B, I, D) image
+    embeddings; output is tanh-gated (zero-init -> identity at init)."""
+    B, S, D = x.shape
+    I = kv_src.shape[1]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    k = (kv_src @ p["wk"]).reshape(B, I, KV, hd)
+    v = (kv_src @ p["wv"]).reshape(B, I, KV, hd)
+    mask = torch.zeros((S, I), dtype=torch.float32, device=x.device)
+    out = _sdpa(q, k, v, mask)
+    out = out.reshape(B, S, H * hd) @ p["wo"]
+    return out * torch.tanh(p["gate"]).to(out.dtype)

@@ -6,8 +6,8 @@ with stacked ``(L, ...)`` params; heterogeneous stacks (xLSTM's mLSTM/sLSTM
 mix, llama-vision's interleaved cross-attn) are patterns with several stages
 per unit.  The configuration is pure data, the fields of the reference's
 ``repro.models.config``; ``param_count`` walks this package's own shape
-tree.  The reference's ``scaled`` and ``active_param_count`` come with
-their callers, the roofline launcher and the training slice.
+tree.  The reference's ``scaled`` comes with its caller, the roofline
+launcher.
 """
 
 from __future__ import annotations
@@ -108,3 +108,15 @@ class ModelConfig:
         from .model import param_shapes
         return sum(math.prod(s.shape)
                    for s in spec_leaves(param_shapes(self)))
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k + shared experts only)."""
+        if not self.n_experts:
+            return self.param_count()
+        full = self.param_count()
+        # subtract inactive expert params
+        per_expert = 3 * self.d_model * self.moe_d_ff
+        n_moe_layers = sum(s.layers for s in self.pattern
+                           if s.block in ("attn_moe", "mla_moe")) * self.n_units
+        inactive = n_moe_layers * (self.n_experts - self.top_k) * per_expert
+        return full - inactive

@@ -188,7 +188,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         if "gate" in nm or len(s.shape) < 2:        # gates, biases
             return torch.zeros(s.shape, dtype=s.dtype, device=dev)
         w = torch.randn(s.shape, generator=generator, dtype=torch.float32,
-                        device=generator.device) * 0.02
+                        device=generator.device).mul_(0.02)
         return w.to(s.dtype).to(dev)
 
     return Model(cfg, _map(one, param_shapes(cfg)))

@@ -32,7 +32,9 @@ last checks that ``mesh="auto"`` starts its mesh at the engine's card.
 The serving cases run the LM serving engine on the card against the CPU
 (equal tokens on the f32 smoke config) and a 64K-session index on both,
 and check that each entry point of the serving path refuses without a
-card unless given ``device="cpu"``."""
+card unless given ``device="cpu"``.  The model case holds
+deepseek-v2-lite's MoE FFN and MLA decode at full width, one layer, in
+float32 on the card against the CPU."""
 
 import functools
 import os
@@ -1007,3 +1009,76 @@ def test_serving_entry_points_refuse_without_a_card(monkeypatch):
     eng = ServingEngine(cfg, params, EngineConfig(max_batch=2), device="cpu")
     assert eng.sessions.store.engine.device.type == "cpu"
     assert eng.caches["s0_attn_mlp"]["k"].device.type == "cpu"
+
+
+@pytest.mark.gpu
+def test_moe_and_mla_decode_full_width_cuda_matches_cpu():
+    """deepseek-v2-lite-16b at full width, one layer, float32, on the card
+    against the CPU from the same parameters: ``moe_ffn`` at the decode
+    capacity on 256 rows (the served batch) and at the forward capacity
+    on one 1024-token group, with the same experts kept; 4 ``mla_decode``
+    steps over a 16-token compressed cache.  Within 2^-15 of the largest
+    output, chip_smoke.py's I_F32_TOL for the cut stacks."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as att
+    from repro_torch.models import moe
+    from repro_torch.models.layers import Spec
+
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                              dtype="float32")
+    g = torch.Generator().manual_seed(0)
+
+    def draw(t):
+        if isinstance(t, Spec):
+            if len(t.shape) < 2:
+                return torch.ones(t.shape)
+            return torch.randn(t.shape, generator=g).mul_(0.02)
+        return {k: draw(t[k]) for k in sorted(t)}
+
+    def to(t, dev):
+        if isinstance(t, dict):
+            return {k: to(v, dev) for k, v in t.items()}
+        return t.to(dev)
+
+    def near(got, want):
+        got = got.cpu()
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max() <= 2.0 ** -15 * want.abs().max()
+
+    p = draw(moe.moe_shapes(cfg, torch.float32))
+    pc = to(p, "cuda")
+    for shape, cf in (((256, 1, cfg.d_model), 2.0),
+                      ((4, 256, cfg.d_model), 1.25)):
+        x = torch.randn(shape, generator=g)
+        want, _ = moe.moe_ffn(x, p, cfg, cfg.act, capacity_factor=cf,
+                              with_aux=False)
+        got, _ = moe.moe_ffn(x.cuda(), pc, cfg, cfg.act, capacity_factor=cf,
+                             with_aux=False)
+        near(got, want)
+        C = moe.capacity(shape[0] * shape[1], cfg.top_k, cfg.n_experts, cf)
+        xg = x.reshape(1, -1, cfg.d_model)
+        assert torch.equal(moe.route(xg.cuda(), pc["router"], cfg.top_k,
+                                     C)[3].cpu(),
+                           moe.route(xg, p["router"], cfg.top_k, C)[3])
+    del p, pc
+    p = draw(att.mla_shapes(cfg, torch.float32))
+    pc = to(p, "cuda")
+    caches = []
+    for dev in ("cpu", "cuda"):
+        caches.append({"c_kv": torch.zeros(8, 16, cfg.kv_lora_rank,
+                                           device=dev),
+                       "k_rope": torch.zeros(8, 16, cfg.qk_rope_dim,
+                                             device=dev),
+                       "pos": torch.zeros((), dtype=torch.int32,
+                                          device=dev)})
+    for _ in range(4):
+        x = torch.randn((8, 1, cfg.d_model), generator=g)
+        want, caches[0] = att.mla_decode(x, p, cfg, caches[0])
+        got, caches[1] = att.mla_decode(x.cuda(), pc, cfg, caches[1])
+        near(got, want)
+    near(caches[1]["c_kv"], caches[0]["c_kv"])
+    assert caches[1]["pos"].item() == 4

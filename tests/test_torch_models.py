@@ -6,8 +6,15 @@ from a seed with numpy.  In float32 the port is held to the reference
 within 1e-5 (absolute) on logits, caches and layer outputs: the two run
 the same operations in the same order, and what differs is the order of
 the float32 sums inside a matmul or a mean (a few ulps at these widths).
-The bfloat16 case is held within BF16_TOL of the logits' scale (see
-there).  The smoke configs are the four whose stack is ``attn_mlp``."""
+The bfloat16 cases are held within BF16_TOL of the logits' scale (see
+there).  The smoke configs are the four whose stack is ``attn_mlp``
+(ARCHS), and the three of the MoE, MLA and cross-attention blocks
+(BLOCK_ARCHS: mixtral, deepseek, llama-3.2-vision, whose cross-attention
+and MLP gates are set to 0.5 on both sides: at init they are 0 and the
+layer is the identity).  A MoE stack is held to the reference's forward
+and to its decode separately, never decode to forward: the two bucket
+different token groups at different capacities, so a dropped assignment
+makes them differ in the reference too."""
 
 import dataclasses
 import os
@@ -36,6 +43,8 @@ from repro_torch.models.blocks import BLOCKS  # noqa: E402
 from repro_torch.models.layers import spec_leaves  # noqa: E402
 
 ARCHS = ("qwen2-0.5b", "qwen2.5-14b", "glm4-9b", "command-r-plus-104b")
+BLOCK_ARCHS = ("mixtral-8x22b", "deepseek-v2-lite-16b",
+               "llama-3.2-vision-11b")
 TOL = 1e-5
 # bf16 keeps 8 significant bits: one rounding is within 2^-9 of a value.
 # A smoke forward rounds the residual stream, the norms' outputs and every
@@ -57,11 +66,26 @@ def np_tree(t):
 
 
 def pair(arch, **replace):
-    """(port cfg, reference cfg, reference params, port params)."""
+    """(port cfg, reference cfg, reference params, port params).  Every
+    gate leaf (zero at init) is set to 0.5 on both sides."""
     jcfg = dataclasses.replace(jget_smoke(arch), **replace)
     cfg = dataclasses.replace(get_smoke_config(arch), **replace)
     jp = jmodel.init_params(jcfg, jax.random.key(0))
+    jp = jax.tree_util.tree_map_with_path(
+        lambda path, a: jnp.full_like(a, 0.5)
+        if "gate" in jax.tree_util.keystr(path) else a, jp)
     return cfg, jcfg, jp, params_from_numpy(np_tree(jp), cfg, "cpu")
+
+
+def image_aux(cfg, B, seed=3):
+    """(reference aux, port aux): image embeddings when the config has
+    image tokens."""
+    if not cfg.n_image_tokens:
+        return {}, {}
+    img = np.random.default_rng(seed).standard_normal(
+        (B, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+    return {"image_embed": jnp.asarray(img)}, \
+        {"image_embed": torch.from_numpy(img)}
 
 
 def tokens(cfg, shape, seed=1):
@@ -109,6 +133,53 @@ def test_decode_matches_reference(arch):
             close(pc[key][name], c[name])
         assert np.array_equal(pc[key]["pos"].numpy(), np.asarray(c["pos"]))
         assert pc[key]["pos"].dtype == torch.int32
+
+
+@pytest.mark.parametrize("arch", BLOCK_ARCHS)
+def test_block_forward_matches_reference(arch):
+    """The MoE, MLA and cross-attention stacks: logits, the MoE aux loss
+    (forward capacity 1.25) and the last-only projection."""
+    cfg, jcfg, jp, pp = pair(arch)
+    toks = tokens(cfg, (B, 12))
+    jaux, paux = image_aux(cfg, B)
+    jl, ja = jmodel.forward(jp, jcfg, tokens=jnp.asarray(toks), aux=jaux,
+                            remat=None)
+    pl, pa = forward(pp, cfg, tokens=torch.from_numpy(toks), aux=paux)
+    close(pl, jl)
+    close(pa, ja)
+    assert (float(pa) > 0) == bool(cfg.n_experts)
+    jl1, _ = jmodel.forward(jp, jcfg, tokens=jnp.asarray(toks), aux=jaux,
+                            remat=None, last_only=True)
+    close(forward(pp, cfg, tokens=torch.from_numpy(toks), aux=paux,
+                  last_only=True)[0], jl1)
+
+
+@pytest.mark.parametrize("arch", BLOCK_ARCHS)
+def test_block_decode_matches_reference(arch):
+    """8 decode steps (MoE at the decode capacity 2.0): each step's
+    logits, then every cache leaf — mixtral's window ring, deepseek's
+    compressed ``c_kv``/``k_rope``, the cross-attention layers' position
+    that never advances."""
+    cfg, jcfg, jp, pp = pair(arch)
+    toks = tokens(cfg, (B, 8))
+    jaux, paux = image_aux(cfg, B)
+    jstep = jax.jit(lambda p, c, t: jmodel.decode_step(p, jcfg, c, tokens=t,
+                                                       aux=jaux))
+    jc = jmodel.init_caches(jcfg, B, 12)
+    pc = init_caches(cfg, B, 12, device="cpu")
+    for i in range(8):
+        jl, jc = jstep(jp, jc, jnp.asarray(toks[:, i:i + 1]))
+        pl, pc = decode_step(pp, cfg, pc, tokens=torch.from_numpy(
+            toks[:, i:i + 1]), aux=paux)
+        close(pl, jl)
+    assert set(pc) == set(jc)
+    for key, c in jc.items():
+        assert set(pc[key]) == set(c)
+        for name, a in c.items():
+            close(pc[key][name], a)
+        assert pc[key]["pos"].dtype == torch.int32
+    if cfg.n_image_tokens:
+        assert pc["s1_cross_attn_mlp"]["pos"].tolist() == [0, 0]
 
 
 def test_gqa_decode_window_ring_matches_reference():
@@ -248,6 +319,25 @@ def test_param_count_and_shapes_match_reference(arch):
     assert get_config("qwen2-0.5b").param_count() == 494_032_768
 
 
+@pytest.mark.parametrize("arch", BLOCK_ARCHS)
+def test_block_param_counts_and_shapes_match_reference(arch):
+    """param_shapes, param_count and active_param_count of the smoke and
+    the full configs."""
+    for get, jget in ((get_smoke_config, jget_smoke),
+                      (get_config, jget_config)):
+        cfg, jcfg = get(arch), jget(arch)
+        assert cfg.param_count() == jcfg.param_count()
+        assert cfg.active_param_count() == jcfg.active_param_count()
+        specs = spec_leaves(param_shapes(cfg))
+        jspecs = jax.tree.leaves(jmodel.param_shapes(jcfg))
+        assert [(s.shape, s.axes, str(s.dtype).split(".")[-1])
+                for s in specs] == \
+            [(tuple(s.shape), s.axes, str(s.dtype)) for s in jspecs]
+    ds = get_config("deepseek-v2-lite-16b")
+    assert (ds.param_count(), ds.active_param_count(), ds.n_layers) == \
+        (15_706_484_224, 2_661_150_208, 27)
+
+
 def test_init_params_rules_and_determinism():
     cfg = get_smoke_config("glm4-9b")
     a = init_params(cfg, torch.Generator().manual_seed(11), device="cpu")
@@ -303,11 +393,40 @@ def test_bf16_smoke_matches_reference():
         close(pl, jl, tol=BF16_TOL * scale)
 
 
+def test_bf16_deepseek_smoke_matches_reference():
+    """deepseek-v2-lite's smoke config in bf16 (MLA, MoE with f32 router
+    and kv_norm): forward and 4 decode steps."""
+    cfg, jcfg, jp, pp = pair("deepseek-v2-lite-16b", dtype="bfloat16")
+    tree = pp.tree()["stages"]["s0_mla_moe"]
+    assert tree["moe"]["w1"].dtype == torch.bfloat16
+    assert tree["moe"]["router"].dtype == torch.float32
+    assert tree["attn"]["kv_norm"].dtype == torch.float32
+    toks = tokens(cfg, (B, 8))
+    jl, _ = jmodel.forward(jp, jcfg, tokens=jnp.asarray(toks), remat=None)
+    pl, _ = forward(pp, cfg, tokens=torch.from_numpy(toks))
+    assert pl.dtype == torch.bfloat16
+    scale = float(jnp.abs(jl.astype(jnp.float32)).max())
+    close(pl, jl, tol=BF16_TOL * scale)
+    jc = jmodel.init_caches(jcfg, B, 8)
+    pc = init_caches(cfg, B, 8, device="cpu")
+    for i in range(4):
+        jl, jc = jmodel.decode_step(jp, jcfg, jc,
+                                    tokens=jnp.asarray(toks[:, i:i + 1]))
+        pl, pc = decode_step(pp, cfg, pc, tokens=torch.from_numpy(
+            toks[:, i:i + 1]))
+        close(pl, jl, tol=BF16_TOL * scale)
+
+
 def test_unported_blocks_and_bad_trees_raise():
-    with pytest.raises(KeyError, match="'mla_moe'.*7d"):
-        BLOCKS["mla_moe"]
+    with pytest.raises(KeyError, match="'hybrid'.*7d"):
+        BLOCKS["hybrid"]
+    for block in ("mlstm", "slstm"):
+        with pytest.raises(KeyError, match=f"'{block}'.*7d"):
+            BLOCKS[block]
+    with pytest.raises(KeyError, match="unknown block 'nope'"):
+        BLOCKS["nope"]
     with pytest.raises(KeyError, match="7d"):
-        param_shapes(get_config("mixtral-8x22b"))
+        param_shapes(get_config("hymba-1.5b"))
     cfg, _, jp, _ = pair("glm4-9b")
     tree = np_tree(jp)
     tree["final_norm"] = tree["final_norm"][:-1]
