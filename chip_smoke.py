@@ -99,6 +99,29 @@
         step against ``mla_attention`` within I_MLA_TOL; and deepseek in
         bf16 against f32, the share of positions whose top-k routing
         differs (a reading, no bound).
+     J  the served recurrent model over the same index: I's model is
+        freed, and hymba-1.5b at full width and full depth (32 ``hybrid``
+        layers: sliding-window GQA attention and Mamba heads in parallel,
+        1.5B parameters) in bf16 serves J_REQUESTS (256) requests like
+        I's, registering the background batches I left, every lookup and
+        request checked, 8 engine steps profiled; its cache bytes split
+        into the attention ring and the Mamba state.  Counts are zeroed
+        just before J's serving and read just after: the four descent
+        kernels must have launched, and are held against their plain
+        versions on the id batches J looked up.  Then J2, in f32 at full
+        width and cut depth (hymba 2 layers, xlstm-1.3b one unit of 7
+        mLSTM and 1 sLSTM layers): ``forward`` over 2 x 8 tokens and over
+        2 x 1024 (hymba) or 2 x 512 (xlstm) tokens, the chunked side of
+        each threshold, and 4 decode steps on the card against the CPU
+        within J2_F32_TOL of the largest logit (I2's bound for hymba;
+        for xlstm, set between the sound port's readings over four seeds,
+        beside its own float32 sensitivity, the CPU logits' move under
+        one ulp of noise on the embeddings, and those with TF32 products
+        on the card); and 8 decode steps on the card against ``forward``
+        within J2_DECODE_TOL.  Last,
+        ``port/examples/quickstart.py`` and ``serve_kv_cache.py`` run as
+        processes of their own on the card and must print the reference
+        examples' facts (EXAMPLES).
    After the timed batches of C, D, E and G, 4 of the phase's batches
    replay through its dispatch half (``BourbonStore.dispatch_get`` in C,
    ``ShardedStore.dispatch_get`` in D and G, and in E shard 0's
@@ -121,7 +144,7 @@
    tables and phase E's one-row level model; ``bounded_search`` also at
    δ = 40 and ``bloom_probe`` at k = 12; the three kernels of phase F also
    at the batch sizes F dispatched, on its probes; the four descent
-   kernels also at phase H's session index, on H's and on I's batches),
+   kernels also at phase H's session index, on H's, I's and J's batches),
    times both with CUDA events and torch.profiler, and computes the
    kernel's lower bound from the bytes its probes must gather and the
    per-launch floor (the device time of one trivial PyTorch kernel over
@@ -148,6 +171,7 @@ from __future__ import annotations
 
 import argparse
 import ast
+import contextlib
 import dataclasses
 import gc
 import json
@@ -580,6 +604,23 @@ def phase_line(tag: str, store, res: dict, card: str, extra: dict) -> None:
     print(json.dumps(rec))
 
 
+def load_store(device: str, n_keys: int, seed: int) -> tuple:
+    """Phase A's host LSM load: ``n_keys`` OSM-like keys in a seeded random
+    order into an in-memory ``BourbonStore`` (default LSMConfig, filters
+    on, values fetched, ``offline``), in put batches of 1M, then flushed.
+    Returns the store and the sorted keys."""
+    from repro_torch.core import BourbonStore, StoreConfig, make_dataset
+
+    store = BourbonStore(StoreConfig(mode="bourbon", policy="offline",
+                                     fetch_values=True, device=device))
+    keys = make_dataset("osm", n_keys, seed=seed)
+    perm = np.random.default_rng(seed).permutation(keys)
+    for off in range(0, n_keys, 1 << 20):
+        store.put_batch(perm[off: off + (1 << 20)])
+    store.flush_all()
+    return store, keys
+
+
 def drive(device: str, n_keys: int, seed: int, card: str,
           batch: int = 4096, n_batches: int = 64, *,
           hot: HotSyncs) -> object:
@@ -588,19 +629,10 @@ def drive(device: str, n_keys: int, seed: int, card: str,
     phases A-C, and (level, device level, tables) of the widest level as
     phase B served it, for the kernel checks."""
     import torch
-    from repro_torch.core import BourbonStore, StoreConfig, make_dataset
 
-    store = BourbonStore(StoreConfig(mode="bourbon", policy="offline",
-                                     fetch_values=True, device=device))
-    rng = np.random.default_rng(seed)
     t0 = time.perf_counter()
-    keys = make_dataset("osm", n_keys, seed=seed)
-    perm = rng.permutation(keys)
-    for off in range(0, n_keys, 1 << 20):
-        store.put_batch(perm[off: off + (1 << 20)])
-    store.flush_all()
+    store, keys = load_store(device, n_keys, seed)
     load_s = time.perf_counter() - t0
-    del perm
     truth = Truth(keys, store.cfg.value_size)
 
     def batches(r, count, size):
@@ -719,6 +751,30 @@ def _sharded_cfg(device: str):
                        device=device)
 
 
+def load_sharded(d: str, device: str, n_keys: int, seed: int) -> tuple:
+    """Phase D's load: ``n_keys`` ar keys in a seeded random order into a
+    ``ShardedStore`` of N_SHARDS range shards in directory ``d``
+    (``_sharded_cfg``), in put batches of SHARD_BATCH; flushed and learned,
+    then the last batch put, so that it is only in the WALs.  Returns the
+    store, the sorted keys and that last batch."""
+    from repro_torch.core import make_dataset
+    from repro_torch.distributed import ShardedConfig, ShardedStore
+
+    keys = make_dataset("ar", n_keys, seed=seed)
+    perm = np.random.default_rng(seed + 10).permutation(keys)
+    bounds = tuple(int(b) for b in np.quantile(
+        keys, np.arange(1, N_SHARDS) / N_SHARDS))
+    st = ShardedStore.open(d, ShardedConfig(N_SHARDS, bounds),
+                           _sharded_cfg(device), mesh=None)
+    flushed, tail = perm[:-SHARD_BATCH], perm[-SHARD_BATCH:]
+    for off in range(0, flushed.shape[0], SHARD_BATCH):
+        st.put_batch(flushed[off: off + SHARD_BATCH])
+    st.flush_all()
+    st.learn_all()
+    st.put_batch(tail)                  # only in the WALs at the kill
+    return st, keys, tail
+
+
 def run_sharded_gets(st, truth: Truth, batches: list, tag: str,
                      answers: list | None = None) -> dict:
     """``run_gets`` for the sharded store: values fetched, every answer
@@ -822,28 +878,15 @@ def drive_sharded(device: str, n_keys: int, seed: int, card: str,
     live shape), the temporary directory to remove, the store's Truth (for
     phases F and G) and D's batches (for phase G)."""
     import torch
-    from repro_torch.core import make_dataset
-    from repro_torch.distributed import ShardedConfig, ShardedStore
+    from repro_torch.distributed import ShardedStore
     from repro_torch.kernels import ops
 
-    keys = make_dataset("ar", n_keys, seed=seed)
-    rng = np.random.default_rng(seed + 10)
-    perm = rng.permutation(keys)
-    bounds = tuple(int(b) for b in np.quantile(
-        keys, np.arange(1, N_SHARDS) / N_SHARDS))
-    truth = Truth(keys, 16)
     d = tempfile.mkdtemp(prefix="bourbon_smoke_shards_")
     try:
         t0 = time.perf_counter()
-        st = ShardedStore.open(d, ShardedConfig(N_SHARDS, bounds),
-                               _sharded_cfg(device), mesh=None)
-        flushed, tail = perm[:-SHARD_BATCH], perm[-SHARD_BATCH:]
-        for off in range(0, flushed.shape[0], SHARD_BATCH):
-            st.put_batch(flushed[off: off + SHARD_BATCH])
-        st.flush_all()
-        st.learn_all()
-        st.put_batch(tail)                  # only in the WALs at the kill
+        st, keys, tail = load_sharded(d, device, n_keys, seed)
         load_s = time.perf_counter() - t0
+        truth = Truth(keys, 16)
         if not all(sh.memtable for sh in st.shards):
             fail("phase D: the tail did not stay in the memtables")
         r = np.random.default_rng(seed + 11)
@@ -1848,12 +1891,23 @@ def serve_requests(eng, truth: SessionTruth, reqs: list, batches, b0: int,
             "engine_lookups": truth.lookups - lookups0, "profile": profile}
 
 
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(t) for t in tree.values())
+    return tree.numel() * tree.element_size()
+
+
 def _model_bytes(params, eng) -> dict:
-    return {"param_bytes": sum(p.numel() * p.element_size()
-                               for p in params.parameters()),
-            "cache_bytes": sum(t.numel() * t.element_size()
-                               for c in eng.caches.values()
-                               for t in c.values())}
+    """Parameter and cache bytes; for a ``hybrid`` stack the cache split
+    into its attention ring and its Mamba state."""
+    out = {"param_bytes": sum(p.numel() * p.element_size()
+                              for p in params.parameters()),
+           "cache_bytes": _tree_bytes(eng.caches)}
+    hybrid = [c for c in eng.caches.values() if "mamba" in c]
+    if hybrid:
+        out["cache_bytes_attn"] = sum(_tree_bytes(c["attn"]) for c in hybrid)
+        out["cache_bytes_ssm"] = sum(_tree_bytes(c["mamba"]) for c in hybrid)
+    return out
 
 
 def drive_lm(device: str, seed: int, card: str, n_sessions: int = H_SESSIONS,
@@ -1995,10 +2049,16 @@ class DropCount:
     engine admits, else the active slots; every other row decodes token 0,
     as in the reference's prefill."""
 
-    def __init__(self, eng, top_k: int):
-        self.eng, self.K = eng, top_k
+    def __init__(self, top_k: int):
+        self.K = top_k
         self.cur, self.calls = [], []
         self.admitting = False
+
+    def on(self, eng):
+        """This counter, to be installed on ``eng`` (``drive_model``'s
+        ``watch``)."""
+        self.eng = eng
+        return self
 
     def __enter__(self):
         from repro_torch.models import moe
@@ -2062,24 +2122,25 @@ class DropCount:
         return out
 
 
-def drive_moe(truth: SessionTruth, left: tuple, seed: int, card: str,
-              device: str, arch_cfg=None, ecfg: dict | None = None,
-              n_requests: int = I_REQUESTS) -> tuple:
-    """Phase I1: ``arch_cfg`` (default: I_ARCH at full width and depth in
-    bf16) from ``init_params`` with a generator seeded ``seed`` serves
-    ``n_requests`` requests through ``ServingEngine`` (``ecfg``, default
-    H_ENGINE) over phase H's session index ``truth``, registering H's
-    ``left`` background batches.  Counts are zeroed just before the serving
-    and read just after.  Returns the I record (also printed), the launch
-    counts and the id batches the engine looked up."""
+def drive_model(truth: SessionTruth, left: tuple, seed: int, card: str,
+                device: str, cfg, ecfg: dict | None = None,
+                n_requests: int = I_REQUESTS, tag: str = "I",
+                watch=None) -> tuple:
+    """Phases I1 and J (``tag``): ``cfg`` from ``init_params`` with a
+    generator seeded ``seed`` serves ``n_requests`` requests through
+    ``ServingEngine`` (``ecfg``, default H_ENGINE) over phase H's session
+    index ``truth``, registering H's ``left`` background batches (the
+    iterator advances, so a later phase registers the ones after).
+    ``watch(engine)``, if given, is a context manager held around the
+    serving.  Counts are zeroed just before the serving and read just
+    after.  Returns the record, the launch counts and the id batches the
+    engine looked up."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import init_params
     from repro_torch.serving.engine import EngineConfig, Request, ServingEngine
 
     on_card = device != "cpu"
-    cfg = arch_cfg or get_config(I_ARCH)
     ecfg = EngineConfig(**(ecfg or H_ENGINE))
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -2092,7 +2153,7 @@ def drive_moe(truth: SessionTruth, left: tuple, seed: int, card: str,
     eng = ServingEngine(cfg, params, ecfg, session_policy="always",
                         device=device)
     eng.sessions = truth                      # phase H's index
-    truth.phase, truth.engine_sets = "I", []
+    truth.phase, truth.engine_sets = tag, []
     ids_checked0, live0 = truth.ids_checked, len(truth.live)
     prng = np.random.default_rng(seed + 13)
     rids = np.unique(prng.integers(np.iinfo(np.int64).min,
@@ -2105,30 +2166,30 @@ def drive_moe(truth: SessionTruth, left: tuple, seed: int, card: str,
                                          size=prng.integers(3, 10)
                                          ).astype(np.int32),
                     max_new=H_MAX_NEW) for i in range(n_requests)]
-    with DropCount(eng, cfg.top_k) as drops:
-        served = serve_requests(eng, truth, reqs, *left, "I")
+    with (watch(eng) if watch else contextlib.nullcontext()):
+        served = serve_requests(eng, truth, reqs, *left, tag)
     launches = dict(ops.launches)             # read just after the serving
     st = truth.stats()
-    rec = {"phase": "I", "arch": cfg.name, "dtype": cfg.dtype,
+    rec = {"phase": tag, "arch": cfg.name, "dtype": cfg.dtype,
            "layers": cfg.n_layers, "params": cfg.param_count(),
            "active_params": cfg.active_param_count(),
            **_model_bytes(params, eng), "init_s": init_s,
            "engine": dataclasses.asdict(ecfg),
            "device_max_bytes": (torch.cuda.max_memory_allocated()
                                 if on_card else 0),
-           **served, "moe": drops.summary(served["prefill_steps"]),
+           **served,
            "sessions_live_before": live0,
            "ids_checked": truth.ids_checked - ids_checked0,
            "model_path_frac": st["model_path_frac"],
            "files_per_level": [len(lvl) for lvl in truth.store.tree.levels],
            "launches": launches, "card": card}
-    print(json.dumps(rec))
     return rec, launches, truth.engine_sets
 
 
-def _cut(arch: str, dtype: str = "float32"):
+def _cut(arch: str, dtype: str = "float32", units: dict = I_UNITS):
+    """``arch`` at full width, cut to ``units[arch]`` pattern units."""
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config(arch), n_units=I_UNITS[arch],
+    return dataclasses.replace(get_config(arch), n_units=units[arch],
                                dtype=dtype)
 
 
@@ -2273,6 +2334,138 @@ def moe_logit_checks(seed: int, device: str) -> dict:
                      f"(tolerance {r['tol']})")
     out["shape"] = {"B": I_CHECK_B, "S": I_CHECK_S, "steps": I_CHECK_STEPS,
                     "mla_T": I_MLA_T, "gate": I_GATE}
+    return out
+
+
+# ----------------------------------------------------------------------------
+# the recurrent model served over the same session index (phase J)
+# ----------------------------------------------------------------------------
+
+J_ARCH = "hymba-1.5b"     # attention and Mamba heads in parallel a layer
+J_REQUESTS = 256
+# J2's cut depths: hymba 2 layers, xlstm one unit (7 mLSTM, 1 sLSTM);
+# xlstm's caches at 256 slots (180.6 GB) rule out serving it on one card
+J2_UNITS = {"hymba-1.5b": 2, "xlstm-1.3b": 1}
+# the chunked side of each cell's threshold: two chunks of MAMBA_CHUNK,
+# two of MLSTM_CHUNK
+J2_LONG = {"hymba-1.5b": 1024, "xlstm-1.3b": 512}
+J2_B, J2_S, J2_STEPS, J2_DECODE_T = 2, 8, 4, 8
+# Bounds, of the largest logit, per arch: card f32 against CPU f32, and the
+# card's decode against its forward.  Set between readings on an NVIDIA
+# H100 80GB HBM3, 700.00 W (port/scripts/ssm_tol_control.py, seeds 0-3):
+# the sound port's, beside the model's own float32 sensitivity (the CPU's
+# logits moved by one ulp of noise on the embeddings,
+# ``cpu_ulp_perturbation``), and those of controls with TF32 products on
+# the card, everywhere or in the mLSTM cell alone.
+# hymba: card against CPU read at most 2.5e-6 (nudge 1.1e-6), TF32 at
+# least 8.8e-4: I2's 2^-15 is 12x the one, 29x below the other; decode
+# against forward at most 1.1e-6, TF32 at least 4.3e-4, and 2^-17 is 7.2x
+# the one, 56x below the other.  xlstm: each mLSTM layer turns the rounding
+# of its 4096-wide gate and 1024-wide score products into relative error
+# through exp, and seven of them compound it: the nudge alone moves its
+# logits 3.2e-5 to 3.5e-4 by seed.  Card against CPU read at most 1.4e-3,
+# the TF32 controls at least 1.2e-2: 2^-8 is 2.9x the one, 3.1x below the
+# other.  Decode against forward read at most 5.9e-4 (seed 1; 2.5e-5 at
+# seed 0), the controls at least 1.2e-2: 2^-9 is 3.3x the one, 6.2x below
+# the other.
+J2_F32_TOL = {"hymba-1.5b": I_F32_TOL, "xlstm-1.3b": 2.0 ** -8}
+J2_DECODE_TOL = {"hymba-1.5b": 2.0 ** -17, "xlstm-1.3b": 2.0 ** -9}
+J2_ULP = 2.0 ** -23      # relative noise on the embeddings: one f32 ulp
+
+
+def ssm_logit_readings(seed: int, device: str) -> dict:
+    """Phase J2 at full width, cut depth (J2_UNITS), float32: per arch the
+    card's ``forward`` over J2_B x J2_S tokens and over J2_B x J2_LONG
+    tokens (both sides of the chunk threshold) and its first J2_STEPS
+    decode steps, each against the same port on the CPU from the same
+    parameters; and on the card, J2_DECODE_T decode steps against
+    ``forward`` over the same tokens (the recurrent decode against the
+    scan).  Also, as the model's own float32 sensitivity beside those
+    bounds, the CPU's ``forward`` over the J2_S tokens with every
+    embedding row scaled by 1 + J2_ULP x N(0, 1) against the unscaled
+    one (``cpu_ulp_perturbation``)."""
+    import torch
+    from repro_torch.models import Model, forward, init_params
+
+    out = {}
+    for i, arch in enumerate(J2_UNITS):
+        cfg = _cut(arch, units=J2_UNITS)
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device=device).manual_seed(
+            seed + 300 + i), device=device)
+        cpu = Model(cfg, _float_copy(params.tree()))
+        rng = np.random.default_rng(seed + 400 + i)
+        long = torch.from_numpy(rng.integers(0, cfg.vocab, (
+            J2_B, J2_LONG[arch])).astype(np.int32))
+        toks = long[:, :J2_DECODE_T]
+        with torch.inference_mode():
+            card = _run(params, cfg, toks, {}, J2_DECODE_T, device)
+            host = _run(cpu, cfg, toks, {}, J2_STEPS, "cpu")
+            card_long = forward(params, cfg, tokens=long.to(device))[0]
+            host_long = forward(cpu, cfg, tokens=long)[0]
+            tree = cpu.tree()
+            g = torch.Generator().manual_seed(seed + 500 + i)
+            tree["embed"] = tree["embed"] * (1 + J2_ULP * torch.randn(
+                tree["embed"].shape, generator=g))
+            nudged = forward(Model(cfg, tree), cfg, tokens=toks[:, :J2_S])[0]
+        out[arch] = {
+            "layers": cfg.n_layers, "params": cfg.param_count(),
+            "cpu_ulp_perturbation": _err(nudged, host[0][:, :J2_S]),
+            "forward": _err(card[0][:, :J2_S], host[0][:, :J2_S]),
+            "forward_long": _err(card_long.float().cpu(), host_long),
+            "decode": _err(card[1][:, :J2_STEPS], host[1]),
+            "decode_vs_forward": _err(card[1], card[0]),
+            "s": time.perf_counter() - t0}
+        del params, cpu, card_long, host_long, tree, nudged
+        gc.collect()
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    return out
+
+
+def ssm_logit_checks(seed: int, device: str) -> dict:
+    """:func:`ssm_logit_readings`, card against CPU within J2_F32_TOL of the
+    CPU's largest logit and decode against forward within J2_DECODE_TOL of
+    forward's."""
+    out = ssm_logit_readings(seed, device)
+    for arch, rec in out.items():
+        f32_tol = J2_F32_TOL[arch]
+        for tag, tol in (("forward", f32_tol), ("forward_long", f32_tol),
+                         ("decode", f32_tol),
+                         ("decode_vs_forward", J2_DECODE_TOL[arch])):
+            r = rec[tag]
+            r["tol"] = tol * r["logit_scale"]
+            if not r["finite"] or r["max_abs_err"] > r["tol"]:
+                fail(f"phase J2: {arch} {tag} differs by {r['max_abs_err']} "
+                     f"(tolerance {r['tol']})")
+    out["shape"] = {"B": J2_B, "S": J2_S, "long": J2_LONG,
+                    "steps": J2_STEPS, "decode_T": J2_DECODE_T}
+    return out
+
+
+# the port's examples, each run as its own process on the card: the lines
+# each must print (the reference example's facts)
+EXAMPLES = {"quickstart.py": ("hit rate 1.000", "model_path=100.0%"),
+            "serve_kv_cache.py": ("served 16 requests in 24 engine steps",)}
+
+
+def run_examples() -> dict:
+    """``port/examples/quickstart.py`` and ``serve_kv_cache.py`` as
+    subprocesses on the card (their default device): each must exit 0 and
+    print its lines of EXAMPLES."""
+    out = {}
+    for name, lines in EXAMPLES.items():
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable,
+                            os.path.join(HERE, "port", "examples", name)],
+                           capture_output=True, text=True, timeout=600,
+                           cwd=HERE)
+        got = r.stdout.splitlines()
+        missing = [ln for ln in lines if not any(ln in g for g in got)]
+        if r.returncode != 0 or missing:
+            fail(f"example {name} exited {r.returncode}, missing {missing}: "
+                 f"{r.stderr[-2000:]}")
+        out[name] = {"s": time.perf_counter() - t0, "stdout": got}
     return out
 
 
@@ -2950,12 +3143,16 @@ def _time(fn) -> float:
     return start.elapsed_time(end) / (TIMED_ROUNDS * TIMED_BATCHES)
 
 
+A_KEYS = 1 << 23          # phase A's OSM-like keys (``--keys``)
+D_KEYS = 1 << 22          # phase D's ar keys (``--shard-keys``)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--keys", type=int, default=1 << 23,
+    ap.add_argument("--keys", type=int, default=A_KEYS,
                     help="OSM-like keys loaded into the store (the host "
                          "LSM load of 1 << 24 does not fit the run's time)")
-    ap.add_argument("--shard-keys", type=int, default=1 << 22,
+    ap.add_argument("--shard-keys", type=int, default=D_KEYS,
                     help="ar keys loaded into the sharded store of phases "
                          "D and E (the bench_dist_recovery config at "
                          "4M keys instead of its 128K)")
@@ -2974,6 +3171,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.join(HERE, "port"))
     try:
+        from repro_torch.configs import get_config
         from repro_torch.kernels import build
     except ImportError as e:
         print(f"chip_smoke: the port's package is missing ({e})",
@@ -3061,7 +3259,12 @@ def main() -> int:
             k["session_shape"] = session_shapes[k["name"]]
     gc.collect()
     torch.cuda.empty_cache()
-    _, launches_i, i_sets = drive_moe(sessions, left, args.seed, card, "cuda")
+    i_cfg = get_config(I_ARCH)
+    drops = DropCount(i_cfg.top_k)
+    rec_i, launches_i, i_sets = drive_model(sessions, left, args.seed, card,
+                                            "cuda", i_cfg, watch=drops.on)
+    rec_i["moe"] = drops.summary(rec_i["prefill_steps"])
+    print(json.dumps(rec_i))
     for name in KERNELS[:4]:
         if launches_i[name] <= 0:
             fail(f"{name} never launched on the served MoE path (I)")
@@ -3071,17 +3274,38 @@ def main() -> int:
         k["launches"] += launches_i[k["name"]]
         if k["name"] in i_shapes:
             k["session_shape_i"] = i_shapes[k["name"]]
+    left = (left[0], left[1] + rec_i["background_batches_while_serving"])
+    del rec_i, drops
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec_j, launches_j, j_sets = drive_model(sessions, left, args.seed, card,
+                                            "cuda", get_config(J_ARCH),
+                                            n_requests=J_REQUESTS, tag="J")
+    print(json.dumps(rec_j))
+    for name in KERNELS[:4]:
+        if launches_j[name] <= 0:
+            fail(f"{name} never launched on the served recurrent path (J)")
+    j_shapes = session_shape_checks(sessions.store, j_sets)
+    for k in checks:
+        k["launches_j"] = launches_j[k["name"]]
+        k["launches"] += launches_j[k["name"]]
+        if k["name"] in j_shapes:
+            k["session_shape_j"] = j_shapes[k["name"]]
     del sessions, left
     gc.collect()
     torch.cuda.empty_cache()
     print(json.dumps({"phase": "I2", **moe_logit_checks(args.seed, "cuda"),
                       "card": card}))
+    print(json.dumps({"phase": "J2", **ssm_logit_checks(args.seed, "cuda"),
+                      "card": card}))
+    print(json.dumps({"examples": run_examples(), "card": card}))
     for k in checks:
         other = {tag: k[tag]["mismatches"]
                  for tag in ("wide_check", "shard_shape", "level_model_shape",
                              "engine_shape", "served_shape", "mesh_shape",
                              "mesh_dispatched_shape", "mesh_example_shape",
-                             "session_shape", "session_shape_i")
+                             "session_shape", "session_shape_i",
+                             "session_shape_j")
                  if tag in k}
         if k["mismatches"] != 0 or any(other.values()):
             fail(f"{k['name']} disagrees with its plain version on "

@@ -3,12 +3,12 @@
 Every architecture module exports CONFIG (exact public config) and
 smoke_config() (reduced same-family config for CPU tests).  ``get_config``
 resolves --arch ids.  The modules are pure data, the same as the
-reference's ``repro.configs``.  Eight run on the ported blocks: the
+reference's ``repro.configs``.  All ten run on the port's blocks: the
 ``attn_mlp`` stacks (qwen2-0.5b, qwen2.5-14b, glm4-9b, command-r-plus-104b,
 musicgen-large), mixtral-8x22b (``attn_moe``), deepseek-v2-lite-16b
-(``mla_dense``, ``mla_moe``) and llama-3.2-vision-11b (``attn_mlp``,
-``cross_attn_mlp``); hymba-1.5b and xlstm-1.3b name the recurrent blocks
-that ROADMAP Queue 1 item 7d ports next.
+(``mla_dense``, ``mla_moe``), hymba-1.5b (``hybrid``), xlstm-1.3b
+(``mlstm``, ``slstm``) and llama-3.2-vision-11b (``attn_mlp``,
+``cross_attn_mlp``).
 """
 
 from __future__ import annotations

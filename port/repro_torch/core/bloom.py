@@ -1,7 +1,8 @@
 """Per-sstable bloom filters, vectorized.
 
 Build is host-side numpy (at flush/compaction time, like LevelDB's filter
-block), copied from ``repro.core.bloom`` so the bits are identical; the
+block), the hashing copied from ``repro.core.bloom`` so the bits are
+identical (the words are packed from per-bit flags); the
 device probe is the CUDA kernel in ``repro_torch.kernels`` and
 ``bloom_probe_ref`` is its plain PyTorch version.
 
@@ -46,17 +47,18 @@ def _hash2_np(keys: np.ndarray):
 
 
 def bloom_build_np(keys: np.ndarray, n_words: int, k_hashes: int = 7) -> np.ndarray:
-    """Build packed filter bits (uint64 words) for the given keys."""
-    bits = np.zeros(n_words, dtype=np.uint64)
+    """Build packed filter bits (uint64 words) for the given keys: bit
+    ``pos & 63`` of word ``pos >> 6`` for every probe position ``pos``.
+    The positions are set in a flag per bit and packed little-endian, which
+    gives the reference's words (its ``np.bitwise_or.at`` per word)."""
     if keys.size == 0:
-        return bits
+        return np.zeros(n_words, dtype=np.uint64)
     m = np.uint64(n_words * 64)
     h1, h2 = _hash2_np(keys)
+    flags = np.zeros(n_words * 64, dtype=bool)
     for i in range(k_hashes):
-        pos = (h1 + np.uint64(i) * h2) % m
-        np.bitwise_or.at(bits, (pos >> np.uint64(6)).astype(np.int64),
-                         np.uint64(1) << (pos & np.uint64(63)))
-    return bits
+        flags[(h1 + np.uint64(i) * h2) % m] = True
+    return np.packbits(flags, bitorder="little").view("<u8").astype(np.uint64)
 
 
 def bloom_probe_np(bits: np.ndarray, probes: np.ndarray, k_hashes: int = 7,

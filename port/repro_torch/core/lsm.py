@@ -19,9 +19,29 @@ import numpy as np
 
 from .sstable import SSTable, build_sstable
 
-__all__ = ["LSMConfig", "LSMTree", "CompactionEvent"]
+__all__ = ["LSMConfig", "LSMTree", "CompactionEvent", "merge_order"]
 
 N_LEVELS = 7
+
+
+def merge_order(keys: np.ndarray, seqs: np.ndarray) -> np.ndarray:
+    """The permutation ``np.lexsort((seqs, keys))`` gives (keys ascending,
+    equal keys by seq ascending, full ties in input order), for any input.
+    Fast when the input is a concatenation of key-sorted runs, as a
+    compaction's sstables are: a stable argsort of the keys merges the runs
+    (timsort finds them), and only the positions of keys that repeat are
+    put in seq order again."""
+    order = np.argsort(keys, kind="stable")
+    k = keys[order]
+    rep = k[1:] == k[:-1]
+    if rep.any():
+        inrun = np.zeros(k.shape[0], bool)
+        inrun[1:] = rep
+        inrun[:-1] |= rep
+        pos = np.flatnonzero(inrun)
+        sub = order[pos]
+        order[pos] = sub[np.lexsort((seqs[sub], k[pos]))]
+    return order
 
 
 @dataclasses.dataclass
@@ -112,7 +132,7 @@ class LSMTree:
         keys = np.concatenate([t.keys for t in tables])
         seqs = np.concatenate([t.seqs for t in tables])
         vptrs = np.concatenate([t.vptrs for t in tables])
-        order = np.lexsort((seqs, keys))
+        order = merge_order(keys, seqs)
         k, s, v = keys[order], seqs[order], vptrs[order]
         last = np.r_[k[1:] != k[:-1], True]   # newest version of each key
         k, s, v = k[last], s[last], v[last]

@@ -56,7 +56,7 @@ from repro_torch.core.distributed import (DistStoreConfig, build_dist_get,
                                           place_dist_state)
 from repro_torch.core.engine import EngineConfig, upload
 from repro_torch.core.filters import FilterConfig, build_level_filter
-from repro_torch.core.lsm import LSMConfig
+from repro_torch.core.lsm import LSMConfig, merge_order
 from repro_torch.core.mesh import Mesh, make_mesh
 from repro_torch.core.plr import greedy_plr_np
 from repro_torch.core.store import BourbonStore, StoreConfig
@@ -129,7 +129,7 @@ def merge_live(tables) -> tuple[np.ndarray, np.ndarray]:
     keys = np.concatenate([t.keys for t in tables])
     seqs = np.concatenate([t.seqs for t in tables])
     vptrs = np.concatenate([t.vptrs for t in tables])
-    order = np.lexsort((seqs, keys))
+    order = merge_order(keys, seqs)
     k, v = keys[order], vptrs[order]
     last = np.r_[k[1:] != k[:-1], True]   # newest version of each key
     k, v = k[last], v[last]

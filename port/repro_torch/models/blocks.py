@@ -7,12 +7,13 @@ Block contract (the reference's ``repro.models.blocks``):
   init_cache(cfg, B, T, dtype, device)       -> cache tree (zeros)
 
 aux carries cross-modal inputs (image embeddings) and layer metadata.
-Ported: ``attn_mlp`` (the dense GQA configs: qwen2, qwen2.5, glm4,
-command-r, musicgen), ``attn_moe`` (mixtral), ``mla_dense`` and
-``mla_moe`` (deepseek) and ``cross_attn_mlp`` (llama-vision).  The
-recurrent blocks (``hybrid``, ``mlstm``, ``slstm``) follow in ROADMAP
-Queue 1 item 7d, and asking ``BLOCKS`` for one raises a ``KeyError`` that
-says so.
+Every block of the reference is here: ``attn_mlp`` (the dense GQA configs:
+qwen2, qwen2.5, glm4, command-r, musicgen), ``attn_moe`` (mixtral),
+``mla_dense`` and ``mla_moe`` (deepseek), ``hybrid`` (hymba), ``mlstm``
+and ``slstm`` (xlstm) and ``cross_attn_mlp`` (llama-vision).  A decode
+returns the block's cache tree, nested for ``hybrid``; the recurrent
+blocks' new state comes back as new tensors, which ``model.Layer.decode``
+writes into the caches.
 """
 
 from __future__ import annotations
@@ -24,9 +25,11 @@ from .attention import (cross_attention, cross_attn_shapes, gqa_attention,
                         mla_shapes)
 from .layers import Spec, apply_norm, glu_mlp, mlp_shapes, norm_shapes
 from .moe import moe_ffn, moe_shapes
+from .ssm import (mamba, mamba_decode, mamba_shapes, mlstm, mlstm_decode,
+                  mlstm_shapes, slstm, slstm_decode, slstm_shapes)
 
-__all__ = ["BLOCKS", "AttnMlp", "AttnMoe", "MlaMoe", "MlaDense",
-           "CrossAttnMlp"]
+__all__ = ["BLOCKS", "AttnMlp", "AttnMoe", "MlaMoe", "MlaDense", "Hybrid",
+           "MLstm", "SLstm", "CrossAttnMlp"]
 
 
 def _zeros(shape, dtype, device):
@@ -180,6 +183,109 @@ class MlaDense(MlaMoe):
         return x + glu_mlp(h, p["mlp"], cfg.act), cache
 
 
+# ----------------------------------------------------------------- hybrid
+
+class Hybrid:
+    """Hymba: attention and mamba heads in parallel on the same input,
+    outputs normalized and averaged; then MLP."""
+
+    @staticmethod
+    def shapes(cfg, dtype):
+        return {
+            "ln1": norm_shapes(cfg, torch.float32),
+            "attn": gqa_shapes(cfg, dtype),
+            "mamba": mamba_shapes(cfg, dtype),
+            "na": norm_shapes(cfg, torch.float32),
+            "nm": norm_shapes(cfg, torch.float32),
+            "ln2": norm_shapes(cfg, torch.float32),
+            "mlp": mlp_shapes(cfg, cfg.d_ff, dtype),
+        }
+
+    @staticmethod
+    def forward(x, p, cfg, aux):
+        h = apply_norm(x, p["ln1"], cfg)
+        a = gqa_attention(h, p["attn"], cfg, window=cfg.window)
+        m = mamba(h, p["mamba"], cfg)
+        mix = 0.5 * (apply_norm(a, p["na"], cfg) + apply_norm(m, p["nm"], cfg))
+        x = x + mix
+        h = apply_norm(x, p["ln2"], cfg)
+        return x + glu_mlp(h, p["mlp"], cfg.act), 0.0
+
+    @staticmethod
+    def decode(x, p, cfg, cache, aux):
+        h = apply_norm(x, p["ln1"], cfg)
+        a, ac = gqa_decode(h, p["attn"], cfg, cache["attn"], window=cfg.window)
+        m, mc = mamba_decode(h, p["mamba"], cfg, cache["mamba"])
+        mix = 0.5 * (apply_norm(a, p["na"], cfg) + apply_norm(m, p["nm"], cfg))
+        x = x + mix
+        h = apply_norm(x, p["ln2"], cfg)
+        return x + glu_mlp(h, p["mlp"], cfg.act), {"attn": ac, "mamba": mc}
+
+    @staticmethod
+    def init_cache(cfg, B, T, dtype, device):
+        Di = cfg.ssm_expand * cfg.d_model
+        return {
+            "attn": AttnMlp.init_cache(cfg, B, T, dtype, device),
+            "mamba": {"h": _zeros((B, Di, cfg.ssm_state), torch.float32,
+                                  device),
+                      "conv": _zeros((B, cfg.ssm_conv - 1, Di), dtype,
+                                     device)},
+        }
+
+
+# ------------------------------------------------------------------ xLSTM
+
+class MLstm:
+    @staticmethod
+    def shapes(cfg, dtype):
+        return {"ln1": norm_shapes(cfg, torch.float32),
+                "cell": mlstm_shapes(cfg, dtype)}
+
+    @staticmethod
+    def forward(x, p, cfg, aux):
+        return x + mlstm(apply_norm(x, p["ln1"], cfg), p["cell"], cfg), 0.0
+
+    @staticmethod
+    def decode(x, p, cfg, cache, aux):
+        y, cache = mlstm_decode(apply_norm(x, p["ln1"], cfg), p["cell"], cfg,
+                                cache)
+        return x + y, cache
+
+    @staticmethod
+    def init_cache(cfg, B, T, dtype, device):
+        H = cfg.n_heads
+        hd = cfg.mlstm_pf * cfg.d_model // H
+        return {"C": _zeros((B, H, hd, hd), torch.float32, device),
+                "n": _zeros((B, H, hd), torch.float32, device),
+                "m": _zeros((B, H), torch.float32, device)}
+
+
+class SLstm:
+    @staticmethod
+    def shapes(cfg, dtype):
+        return {"ln1": norm_shapes(cfg, torch.float32),
+                "cell": slstm_shapes(cfg, dtype)}
+
+    @staticmethod
+    def forward(x, p, cfg, aux):
+        return x + slstm(apply_norm(x, p["ln1"], cfg), p["cell"], cfg), 0.0
+
+    @staticmethod
+    def decode(x, p, cfg, cache, aux):
+        y, cache = slstm_decode(apply_norm(x, p["ln1"], cfg), p["cell"], cfg,
+                                cache)
+        return x + y, cache
+
+    @staticmethod
+    def init_cache(cfg, B, T, dtype, device):
+        H = cfg.slstm_heads
+        z = (B, H, cfg.d_model // H)
+        return {"c": _zeros(z, torch.float32, device),
+                "n": _zeros(z, torch.float32, device),
+                "h": _zeros(z, torch.float32, device),
+                "m": _zeros((B, H), torch.float32, device)}
+
+
 # ---------------------------------------------------------- cross_attn_mlp
 
 class CrossAttnMlp:
@@ -217,18 +323,11 @@ class CrossAttnMlp:
         return {"pos": _zeros((), torch.int32, device)}
 
 
-UNPORTED = ("hybrid", "mlstm", "slstm")   # the recurrent blocks (ssm.py)
-
-
 class _Blocks(dict):
-    """The block registry; a block of the reference not ported yet raises
-    a KeyError that names it and the ROADMAP item that ports it."""
+    """The block registry; an unknown block raises a KeyError naming the
+    known ones."""
 
     def __missing__(self, block):
-        if block in UNPORTED:
-            raise KeyError(f"block {block!r} is not ported to repro_torch "
-                           f"yet (ROADMAP Queue 1 item 7d: ssm.py with "
-                           f"{', '.join(UNPORTED)}); ported: {sorted(self)}")
         raise KeyError(f"unknown block {block!r}; known: {sorted(self)}")
 
 
@@ -237,5 +336,8 @@ BLOCKS = _Blocks({
     "attn_moe": AttnMoe,
     "mla_moe": MlaMoe,
     "mla_dense": MlaDense,
+    "hybrid": Hybrid,
+    "mlstm": MLstm,
+    "slstm": SLstm,
     "cross_attn_mlp": CrossAttnMlp,
 })

@@ -11,12 +11,14 @@ embeddings are tied), so that ``execution_runs`` keeps its meaning and
 of its stage's stacked tensors, made once.
 
 There is no ``jit`` and no scan: layers run as a Python loop, eagerly, on
-the parameters' device.  ``decode_step`` writes the KV caches in place and
-returns the same cache tree.  ``loss_fn`` comes with the training slice.
+the parameters' device.  ``decode_step`` writes the caches (KV, and the
+recurrent blocks' state) in place and returns the same cache tree.
+``loss_fn`` comes with the training slice.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -140,10 +142,19 @@ class Layer(nn.Module):
         stage's stacked ``caches`` in place."""
         cache = caches.rows[self.key][self.index]
         y, new = BLOCKS[self.block].decode(x, self.p, cfg, cache, aux)
-        for name, t in new.items():
-            if t is not cache[name]:
-                cache[name].copy_(t)
+        _write_back(cache, new)
         return y
+
+
+def _write_back(cache: dict, new: dict) -> None:
+    """Write a block's new cache tree into ``cache`` leaf by leaf, in
+    place, at any depth (``hybrid``'s is ``{"attn": ..., "mamba": ...}``).
+    A leaf the block already updated in place is left as it is."""
+    for name, t in new.items():
+        if isinstance(t, dict):
+            _write_back(cache[name], t)
+        elif t is not cache[name]:
+            cache[name].copy_(t)
 
 
 class Model(nn.Module):
@@ -175,21 +186,34 @@ class Model(nn.Module):
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: str = "cuda") -> Model:
     """Real initialization (smoke tests / small trains), decided by path as
-    in the reference: norms -> ones, gates/biases -> zeros, matrices ->
-    normal 0.02, drawn in f32 and cast.  Leaves are drawn in sorted path
-    order on ``generator``'s device, then placed on ``device`` (the card
-    unless ``device="cpu"``)."""
+    in the reference and in its order: norms -> ones, gates -> zeros,
+    mamba's ``A_log`` -> ``log(1..N)`` along its last axis (A from -1 to
+    -N), ``Dskip`` -> ones, leaves of two or more axes -> normal 0.02
+    drawn in f32 and cast, the rest (unstacked biases) -> zeros.  Drawn
+    leaves are drawn in sorted path order on ``generator``'s device, then
+    placed on ``device`` (the card unless ``device="cpu"``)."""
     dev = resolve_device(device)
 
     def one(path, s):
         nm = "/".join(path).lower()
         if any(t in nm for t in ("norm", "ln1", "ln2", "/na", "/nm")):
             return torch.ones(s.shape, dtype=s.dtype, device=dev)
-        if "gate" in nm or len(s.shape) < 2:        # gates, biases
+        if "gate" in nm:
             return torch.zeros(s.shape, dtype=s.dtype, device=dev)
-        w = torch.randn(s.shape, generator=generator, dtype=torch.float32,
-                        device=generator.device).mul_(0.02)
-        return w.to(s.dtype).to(dev)
+        if "a_log" in nm:          # mamba: A in [-N..-1]
+            # numpy's float32 log rounds as XLA's does for N <= 36
+            # (torch's is an ulp off at some N)
+            a = np.log(np.arange(1, s.shape[-1] + 1, dtype=np.float32))
+            return torch.from_numpy(a).to(device=dev, dtype=s.dtype) \
+                .expand(s.shape).contiguous()
+        if "dskip" in nm:
+            return torch.ones(s.shape, dtype=s.dtype, device=dev)
+        if len(s.shape) >= 2:
+            w = torch.randn(s.shape, generator=generator,
+                            dtype=torch.float32,
+                            device=generator.device).mul_(0.02)
+            return w.to(s.dtype).to(dev)
+        return torch.zeros(s.shape, dtype=s.dtype, device=dev)   # biases
 
     return Model(cfg, _map(one, param_shapes(cfg)))
 

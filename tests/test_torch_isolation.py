@@ -55,7 +55,7 @@ def test_importing_every_module_loads_no_jax_or_repro():
             "repro_torch.serving.session_store", "repro_torch.serving.engine",
             "repro_torch.models", "repro_torch.models.config",
             "repro_torch.models.layers", "repro_torch.models.attention",
-            "repro_torch.models.moe",
+            "repro_torch.models.moe", "repro_torch.models.ssm",
             "repro_torch.models.blocks", "repro_torch.models.model",
             "repro_torch.configs", "repro_torch.configs.base",
             "repro_torch.configs.qwen2_0_5b", "repro_torch.launch",

@@ -34,7 +34,9 @@ The serving cases run the LM serving engine on the card against the CPU
 and check that each entry point of the serving path refuses without a
 card unless given ``device="cpu"``.  The model case holds
 deepseek-v2-lite's MoE FFN and MLA decode at full width, one layer, in
-float32 on the card against the CPU."""
+float32 on the card against the CPU; the recurrent cases hold hymba-1.5b
+(one layer) and xlstm-1.3b (one unit) the same way, on both sides of
+their chunk thresholds."""
 
 import functools
 import os
@@ -1082,3 +1084,56 @@ def test_moe_and_mla_decode_full_width_cuda_matches_cpu():
         near(got, want)
     near(caches[1]["c_kv"], caches[0]["c_kv"])
     assert caches[1]["pos"].item() == 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,units,long,tol", [
+    ("hymba-1.5b", 1, 1024, 2.0 ** -15), ("xlstm-1.3b", 1, 512, 2.0 ** -8)])
+def test_recurrent_stacks_full_width_cuda_match_cpu(arch, units, long, tol):
+    """hymba-1.5b (one ``hybrid`` layer) and xlstm-1.3b (one unit: 7
+    mLSTM and 1 sLSTM layers) at full width in float32, from the same
+    parameters on the card and on the CPU: ``forward`` over 1 x 8 tokens
+    and over 1 x ``long`` (the chunked side of MAMBA_CHUNK and of
+    MLSTM_CHUNK), and 4 decode steps.  Within ``tol`` of the largest
+    logit, chip_smoke.py's J2_F32_TOL: xlstm's stack moves its own f32
+    logits 3.2e-5 to 3.5e-4 of their scale under one ulp of input noise
+    (J2's ``cpu_ulp_perturbation`` over four seeds, on the host of an
+    NVIDIA H100 80GB HBM3, 700.00 W), and 2^-8 lies between its sound
+    card-against-CPU readings (at most 1.4e-3) and those with TF32
+    products on the card (at least 1.2e-2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import (Model, decode_step, forward,
+                                    init_caches, init_params)
+
+    cfg = dataclasses.replace(get_config(arch), n_units=units,
+                              dtype="float32")
+    card = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    cpu = Model(cfg, _cpu_tree(card.tree()))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, long)).astype(np.int32))
+
+    def near(got, want):
+        got = got.float().cpu()
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max() <= tol * want.abs().max()
+
+    with torch.inference_mode():
+        for t in (toks[:, :8], toks):
+            near(forward(card, cfg, tokens=t.cuda())[0],
+                 forward(cpu, cfg, tokens=t)[0])
+        cc = init_caches(cfg, 1, 8)
+        hc = init_caches(cfg, 1, 8, device="cpu")
+        for i in range(4):
+            got, cc = decode_step(card, cfg, cc, tokens=toks[:, i:i + 1].cuda())
+            want, hc = decode_step(cpu, cfg, hc, tokens=toks[:, i:i + 1])
+            near(got, want)
+
+
+def _cpu_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _cpu_tree(v) for k, v in tree.items()}
+    return tree.detach().cpu()

@@ -418,15 +418,22 @@ def test_bf16_deepseek_smoke_matches_reference():
 
 
 def test_unported_blocks_and_bad_trees_raise():
-    with pytest.raises(KeyError, match="'hybrid'.*7d"):
-        BLOCKS["hybrid"]
-    for block in ("mlstm", "slstm"):
-        with pytest.raises(KeyError, match=f"'{block}'.*7d"):
-            BLOCKS[block]
+    """No block of the reference is left unported: every one of the ten
+    configs gives its parameter shapes, and only a block the reference
+    does not have raises ("unknown block").  A parameter tree of the
+    wrong shape or keys raises."""
+    from repro_torch.configs import ARCHS as PORT_ARCHS
+    assert len(PORT_ARCHS) == 10
+    for arch in PORT_ARCHS:
+        assert spec_leaves(param_shapes(get_config(arch)))
+    assert {"hybrid", "mlstm", "slstm"} <= set(BLOCKS)
     with pytest.raises(KeyError, match="unknown block 'nope'"):
         BLOCKS["nope"]
-    with pytest.raises(KeyError, match="7d"):
-        param_shapes(get_config("hymba-1.5b"))
+    with pytest.raises(KeyError, match="unknown block 'nope'"):
+        param_shapes(dataclasses.replace(
+            get_config("hymba-1.5b"),
+            pattern=(dataclasses.replace(get_config("hymba-1.5b").pattern[0],
+                                         block="nope"),)))
     cfg, _, jp, _ = pair("glm4-9b")
     tree = np_tree(jp)
     tree["final_norm"] = tree["final_norm"][:-1]
