@@ -118,8 +118,29 @@
         beside its own float32 sensitivity, the CPU logits' move under
         one ulp of noise on the embeddings, and those with TF32 products
         on the card); and 8 decode steps on the card against ``forward``
-        within J2_DECODE_TOL.  Last,
-        ``port/examples/quickstart.py`` and ``serve_kv_cache.py`` run as
+        within J2_DECODE_TOL.
+     K  training: qwen2-0.5b at full width and depth (24 layers,
+        494,032,768 parameters) in bf16 with the f32 master copy
+        (``AdamWConfig()``), trained by ``repro_torch.train.Trainer`` over
+        ``synthetic_tokens`` in sequences of 1024 tokens, 8 a step, remat
+        "none", in a temporary directory removed at the end: run 1
+        checkpoints at step 6 and stops at an injected failure at step 9;
+        run 2 restores step 6's checkpoint, every leaf held bit for bit to
+        the host tree run 1 wrote (bf16 leaves as bf16), and trains to
+        step 11, its steps 8-11 under torch.profiler.  Every loss must be
+        finite and step 11's below step 0's.  Its line has steps/s and
+        tokens/s (median step), the losses and grad norms, the device idle
+        share over the profiled steps, peak device bytes, a checkpoint's
+        bytes, its save, snapshot and restore seconds and the free disk
+        space.  Counts are zeroed just before K and read just after: the
+        training path runs none of the five kernels (``launches_k``).
+        Then K2, in f32 at full width and cut depth (qwen2-0.5b and
+        hymba-1.5b, 2 layers each), TF32 off: ``loss_fn`` and every
+        gradient leaf on the card (remat "full") against the CPU (remat
+        "none") from the same parameters, and one ``adamw_update`` on
+        identical trees, within K2_LOSS_TOL, K2_GRAD_TOL and K2_ADAMW_TOL.
+        Last, ``port/examples/quickstart.py``, ``serve_kv_cache.py`` and
+        ``train_lm.py`` (200 steps of a d 512, 8-layer model) run as
         processes of their own on the card and must print the reference
         examples' facts (EXAMPLES).
    After the timed batches of C, D, E and G, 4 of the phase's batches
@@ -2443,16 +2464,390 @@ def ssm_logit_checks(seed: int, device: str) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------------
+# phases K and K2: training
+# ----------------------------------------------------------------------------
+
+K_ARCH = "qwen2-0.5b"     # the arch of launch/train.py and the example
+K_SEQ, K_BATCH = 1024, 8  # tokens a sequence, sequences a step
+K_STEPS = 12
+K_CKPT_EVERY = 6          # run 1 commits step 6's checkpoint ...
+K_FAIL_AT = 9             # ... and fails at step 9; run 2 resumes at 7
+K_PROFILE_FROM = 8        # run 2's steps 8-11 run under torch.profiler
+K_PROFILE_STEPS = 4
+# K2: f32 at full width, cut depth; the card (remat "full") against the
+# CPU (remat "none") from the same parameters, TF32 off
+K2_UNITS = {"qwen2-0.5b": 2, "hymba-1.5b": 2}
+K2_B, K2_S = 2, 16
+# Bounds, set between readings on an NVIDIA H100 80GB HBM3, 700.00 W
+# (port/scripts/train_tol_control.py, seeds 0-3, both archs): the sound
+# port's, and controls' with a fault on the card, each bound the power of
+# two nearest the geometric mean of the largest sound reading and the
+# smallest fault reading.  Loss, of the CPU's: sound at most 9.0e-8 (one
+# f32 ulp at 12), every float32 product in TF32 at least 2.0e-6; 2^-21 is
+# 5.3x the one, 4.2x below the other.  Gradient leaves, of each leaf's
+# largest magnitude: sound at most 4.9e-6 (hymba's mamba.A_log), TF32
+# at least 1.2e-3; 2^-14 is 12.5x the one, 20x below the other.  One
+# AdamW step on identical trees, of each leaf's largest magnitude
+# (parameters, master, m, v): sound at most 4.1e-7 (v of qwen2's attn.bq,
+# seed 1: the clip scale differs by an ulp, as the two devices sum the
+# global norm in another order); weight decay dropped at least 3.0e-5,
+# moments kept in bf16 at least 3.3e-3 (TF32 touches no product there);
+# 2^-18 is 9.2x the one, 7.9x below the weight-decay fault.
+K2_LOSS_TOL = 2.0 ** -21   # of the CPU's loss
+K2_GRAD_TOL = 2.0 ** -14   # of each gradient leaf's largest magnitude
+K2_ADAMW_TOL = 2.0 ** -18  # of each leaf's largest magnitude, after one step
+
+
+class StepClock:
+    """Installed as a trainer's ``step_fn``: times each step with the card
+    synchronized on both sides, and runs torch.profiler over
+    K_PROFILE_STEPS steps from ``profile_from`` (a step number), the wall
+    clock between the first profiled step's start and the last one's end
+    (the trainer's host work between steps included)."""
+
+    def __init__(self, tr, start: int, profile_from: int | None = None):
+        self.fn, self.step = tr.step_fn, start
+        tr.step_fn = self
+        self.profile_from = profile_from
+        self.times, self.prof, self.profile = [], None, None
+
+    def __call__(self, *args):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        if self.step == self.profile_from:
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.t_prof = time.perf_counter()
+        t0 = time.perf_counter()
+        out = self.fn(*args)
+        torch.cuda.synchronize()
+        self.times.append(time.perf_counter() - t0)
+        self.step += 1
+        if self.prof is not None and \
+                self.step == self.profile_from + K_PROFILE_STEPS:
+            wall = time.perf_counter() - self.t_prof
+            t0 = time.perf_counter()
+            self.close()
+            self.profile = {"steps": K_PROFILE_STEPS,
+                            **device_summary(self.done, wall)}
+            # the profiler's own close and summary, not a training cost
+            self.profile["teardown_s"] = time.perf_counter() - t0
+        return out
+
+    def close(self) -> None:
+        """Ends an open profiler window (also when the run stopped)."""
+        if self.prof is not None:
+            self.prof.__exit__(None, None, None)
+            self.done, self.prof = self.prof, None
+
+
+class CkptWatch:
+    """While installed: times every checkpoint write (``ckpt.save``, on
+    the saver's thread) with its bytes, keeps the host tree written at
+    step ``keep``, and times the trainer's ``restore``."""
+
+    def __init__(self, keep: int):
+        self.keep, self.kept = keep, None
+        self.saves, self.restores = [], []
+
+    def __enter__(self):
+        from repro_torch.checkpoint import ckpt
+        from repro_torch.train import trainer
+        self.ckpt, self.trainer = ckpt, trainer
+        self._save, self._restore = ckpt.save, trainer.restore
+
+        def save(tree, directory, step):
+            t0 = time.perf_counter()
+            d = self._save(tree, directory, step)
+            self.saves.append({"step": step,
+                               "s": time.perf_counter() - t0,
+                               "bytes": sum(f.stat().st_size
+                                            for f in d.iterdir())})
+            if step == self.keep:
+                self.kept = tree
+            return d
+
+        def restore(*args, **kw):
+            t0 = time.perf_counter()
+            out = self._restore(*args, **kw)
+            self.restores.append(time.perf_counter() - t0)
+            return out
+
+        ckpt.save, trainer.restore = save, restore
+        return self
+
+    def __exit__(self, *exc):
+        self.ckpt.save, self.trainer.restore = self._save, self._restore
+
+
+def _timed_snapshots(tr) -> list:
+    """Times the trainer's ``save_async`` calls (the wait for the save in
+    flight and the host snapshot); returns the list they go into."""
+    out, inner = [], tr.saver.save_async
+
+    def save_async(*args):
+        t0 = time.perf_counter()
+        inner(*args)
+        out.append(time.perf_counter() - t0)
+    tr.saver.save_async = save_async
+    return out
+
+
+def _bytes_of(t):
+    """A tensor's bytes as a flat uint8 tensor on the CPU."""
+    import torch
+    return t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+
+
+def drive_train(seed: int, card: str, device: str = "cuda",
+                cfg=None) -> dict:
+    """Phase K: K_ARCH at full width and depth in bf16 with the f32 master
+    (``AdamWConfig()``), trained by ``Trainer`` over ``synthetic_tokens``
+    (DataConfig(seq_len=K_SEQ, global_batch=K_BATCH), remat "none", as
+    ``launch/train.py`` and the example train), in a temporary directory
+    removed at the end.  Run 1 checkpoints at step K_CKPT_EVERY and fails
+    at K_FAIL_AT; run 2's ``init_or_restore`` is held leaf by leaf, bit
+    for bit, to what run 1 wrote (bf16 leaves as bf16), then run 2 trains
+    (restoring again) to step K_STEPS - 1 with its steps from
+    K_PROFILE_FROM profiled.  Fails unless every loss is finite
+    and the last is below step 0's.  Returns the phase's record.  ``cfg``
+    replaces K_ARCH's config (a CPU rehearsal with its smoke config)."""
+    import torch
+    from repro_torch.checkpoint.ckpt import latest_step
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import (DataConfig, TokenDataset,
+                                           synthetic_tokens)
+    from repro_torch.launch.steps import TrainConfig
+    from repro_torch.models.layers import tree_paths
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = cfg or get_config(K_ARCH)
+    tokens = synthetic_tokens(K_SEQ * K_BATCH * (K_STEPS + 4) + 1,
+                              cfg.vocab, seed)
+    ds = TokenDataset(tokens, DataConfig(seq_len=K_SEQ, global_batch=K_BATCH,
+                                         seed=seed, vocab=cfg.vocab))
+    d = tempfile.mkdtemp(prefix="chip_smoke_train_")
+
+    def trainer(fail_at):
+        return Trainer(cfg, TrainerConfig(
+            steps=K_STEPS, ckpt_every=K_CKPT_EVERY, ckpt_dir=d, log_every=1,
+            fail_at_step=fail_at, train=TrainConfig(remat="none")), ds,
+            device=device)
+
+    rec = {"phase": "K", "arch": K_ARCH, "layers": cfg.n_layers,
+           "params": cfg.param_count(), "dtype": cfg.dtype,
+           "master_f32": True, "seq": K_SEQ, "batch": K_BATCH,
+           "steps": K_STEPS, "ckpt_every": K_CKPT_EVERY,
+           "fail_at": K_FAIL_AT, "remat": "none",
+           "disk_free_bytes": shutil.disk_usage(d).free}
+    clocks = []
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        with CkptWatch(K_CKPT_EVERY) as cw:
+            t0 = time.perf_counter()
+            tr1 = trainer(K_FAIL_AT)
+            clocks.append(StepClock(tr1, 0))
+            snaps = _timed_snapshots(tr1)
+            try:
+                tr1.run()
+            except RuntimeError as e:
+                if f"injected failure at step {K_FAIL_AT}" not in str(e):
+                    raise
+            else:
+                fail("phase K: run 1 ran past its injected failure")
+            rec["run1_s"] = time.perf_counter() - t0
+            if latest_step(d) != K_CKPT_EVERY:
+                fail(f"phase K: latest committed step {latest_step(d)}, "
+                     f"expected {K_CKPT_EVERY}")
+            metrics = list(tr1.metrics)
+            del tr1
+            gc.collect()
+            tr2 = trainer(None)
+            clocks.append(StepClock(tr2, K_CKPT_EVERY + 1, K_PROFILE_FROM))
+            snaps += _timed_snapshots(tr2)
+            t0 = time.perf_counter()
+            params, opt, start = tr2.init_or_restore()   # as run() will
+            rec["init_or_restore_s"] = time.perf_counter() - t0
+            if start != K_CKPT_EVERY + 1:
+                fail(f"phase K: run 2 resumes at step {start}")
+            got = dict(tree_paths({"p": params.tree(), "o": opt}))
+            kept = cw.kept
+            if kept is None or set(got) != set(kept):
+                fail("phase K: the restored leaves are not the saved ones")
+            bad = [n for n, t in got.items()
+                   if t.dtype != kept[n].dtype or t.shape != kept[n].shape
+                   or not torch.equal(_bytes_of(t), _bytes_of(kept[n]))]
+            bf16 = [n for n, t in got.items() if t.dtype == torch.bfloat16]
+            if bad or not bf16 or any(kept[n].dtype != torch.bfloat16
+                                      for n in bf16):
+                fail(f"phase K: {len(bad)} restored leaves differ from "
+                     f"step {K_CKPT_EVERY}'s save ({bad[:4]}); "
+                     f"{len(bf16)} bf16")
+            rec["restored"] = {"leaves": len(got), "bf16_leaves": len(bf16),
+                               "mismatched_leaves": 0}
+            del got, kept, params, opt
+            cw.kept = None
+            gc.collect()
+            t0 = time.perf_counter()
+            tr2.run()
+            rec["run2_s"] = time.perf_counter() - t0
+            metrics += tr2.metrics
+            del tr2
+        rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    finally:
+        for c in clocks:
+            c.close()
+        shutil.rmtree(d, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = [(m["step"], m["loss"]) for m in metrics]
+    first = next(l for s, l in losses if s == 0)
+    last = next(l for s, l in losses if s == K_STEPS - 1)
+    if not all(np.isfinite(l) for _, l in losses) or not last < first:
+        fail(f"phase K: losses {losses}")
+    # run 2 replays steps 7-8 of run 1 from step 6's checkpoint
+    replay = {s: [l for t, l in losses if t == s]
+              for s in range(K_CKPT_EVERY + 1, K_FAIL_AT)}
+    steady = sorted(clocks[0].times[1:] + clocks[1].times[1:])
+    step_s = steady[len(steady) // 2]
+    rec.update({
+        "loss_first": first, "loss_last": last, "losses": losses,
+        "grad_norm": [(m["step"], m["grad_norm"]) for m in metrics],
+        "replayed_loss_diff": {s: abs(v[0] - v[1]) for s, v in
+                               replay.items()},
+        "step_s": {"run1": clocks[0].times, "run2": clocks[1].times},
+        "step_s_median": step_s, "steps_per_s": 1 / step_s,
+        "tokens_per_s": K_SEQ * K_BATCH / step_s,
+        "profile": clocks[1].profile,
+        "ckpt_bytes": cw.saves[0]["bytes"], "saves": cw.saves,
+        "snapshot_s": snaps, "restore_s": cw.restores, "card": card})
+    return rec
+
+
+def train_grad_readings(seed: int, device: str, tf32: bool = False,
+                        card_adamw=None) -> dict:
+    """Phase K2 at full width, cut depth (K2_UNITS), float32, TF32 off:
+    per arch the card's ``loss_fn`` (remat "full") and every gradient leaf
+    against the CPU's (remat "none") from the same parameters, on a
+    K2_B x K2_S batch drawn from a seed; then one ``adamw_update`` on
+    identical trees (the CPU's gradients on both sides).  Errors: the
+    loss's against the CPU's, each leaf's largest difference over its
+    largest magnitude (the worst leaves listed).  Controls with a known
+    fault on the card (the CPU side is unchanged): ``tf32`` lets the
+    card's float32 products run in TF32, ``card_adamw`` replaces
+    ``adamw_update`` on the card."""
+    import torch
+    from repro_torch.models import Model, init_params, loss_fn
+    from repro_torch.models.layers import (tree_leaves, tree_map, tree_paths,
+                                           tree_unflatten)
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+
+    def grads(model, batch, remat):
+        tree = model.tree()
+        loss, _ = loss_fn(model, model.cfg, batch, remat=remat)
+        return loss.detach(), tree_unflatten(
+            tree, torch.autograd.grad(loss, tree_leaves(tree)))
+
+    def rel(got, want) -> float:
+        got, want = got.detach().float().cpu(), want.detach().float().cpu()
+        if not bool(torch.isfinite(got).all()):
+            return float("inf")
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        return err / scale if scale else err
+
+    def errs(card, cpu) -> dict:
+        want = dict(tree_paths(cpu))
+        return {n: rel(t, want[n]) for n, t in tree_paths(card)}
+
+    def worst(e: dict) -> dict:
+        top = sorted(e.items(), key=lambda kv: -kv[1])
+        return {"max": top[0][1], "worst": top[:3], "leaves": len(e)}
+
+    out = {}
+    for i, arch in enumerate(K2_UNITS):
+        cfg = _cut(arch, units=K2_UNITS)
+        t0 = time.perf_counter()
+        card = init_params(cfg, torch.Generator(device=device).manual_seed(
+            seed + 600 + i), device=device).trainable()
+        cpu = Model(cfg, _float_copy(card.tree())).trainable()
+        toks = torch.from_numpy(np.random.default_rng(seed + 700 + i)
+                                .integers(0, cfg.vocab, (K2_B, K2_S + 1))
+                                .astype(np.int32))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        lc, gc_ = grads(card, {k: v.to(device) for k, v in batch.items()},
+                        "full")
+        lh, gh = grads(cpu, batch, "none")
+        zero = [n for (n, g), (_, h) in zip(tree_paths(gc_),
+                                            tree_paths(gh))
+                if bool((h != 0).any()) and not bool((g != 0).any())]
+        rec = {"layers": cfg.n_layers, "params": cfg.param_count(),
+               "loss": {"card": float(lc), "cpu": float(lh),
+                        "rel_err": abs(float(lc) - float(lh))
+                        / abs(float(lh))},
+               "grads": {**worst(errs(gc_, gh)),
+                         "zero_where_cpu_is_not": zero}}
+        # one AdamW step on identical trees: the CPU's gradients both sides
+        ocfg = AdamWConfig()
+        st_c, st_h = adamw_init(card, ocfg), adamw_init(cpu, ocfg)
+        (card_adamw or adamw_update)(
+            card, tree_map(lambda g: g.to(device), gh), st_c, ocfg)
+        adamw_update(cpu, gh, st_h, ocfg)
+        e = {f"p.{n}": v for n, v in errs(card.tree(), cpu.tree()).items()}
+        for key in ("m", "v", "master"):
+            e.update({f"{key}.{n}": v
+                      for n, v in errs(st_c[key], st_h[key]).items()})
+        rec["adamw"] = worst(e)
+        rec["s"] = time.perf_counter() - t0
+        out[arch] = rec
+        del card, cpu, gc_, gh, st_c, st_h
+        gc.collect()
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    return out
+
+
+def train_grad_checks(seed: int, device: str) -> dict:
+    """:func:`train_grad_readings` within K2_LOSS_TOL, K2_GRAD_TOL and
+    K2_ADAMW_TOL, and no gradient leaf zero on the card where the CPU's is
+    not."""
+    out = train_grad_readings(seed, device)
+    for arch, rec in out.items():
+        for tag, err, tol in (
+                ("loss", rec["loss"]["rel_err"], K2_LOSS_TOL),
+                ("grads", rec["grads"]["max"], K2_GRAD_TOL),
+                ("adamw", rec["adamw"]["max"], K2_ADAMW_TOL)):
+            rec[tag]["tol"] = tol
+            if not err <= tol:
+                fail(f"phase K2: {arch} {tag} differs by {err} "
+                     f"(tolerance {tol}; {rec[tag]})")
+        if rec["grads"]["zero_where_cpu_is_not"]:
+            fail(f"phase K2: {arch} gradient leaves zero on the card: "
+                 f"{rec['grads']['zero_where_cpu_is_not']}")
+    out["shape"] = {"B": K2_B, "S": K2_S, "units": K2_UNITS,
+                    "tf32": False}
+    return out
+
+
 # the port's examples, each run as its own process on the card: the lines
 # each must print (the reference example's facts)
 EXAMPLES = {"quickstart.py": ("hit rate 1.000", "model_path=100.0%"),
-            "serve_kv_cache.py": ("served 16 requests in 24 engine steps",)}
+            "serve_kv_cache.py": ("served 16 requests in 24 engine steps",),
+            "train_lm.py": ("over 200 steps",)}
 
 
 def run_examples() -> dict:
-    """``port/examples/quickstart.py`` and ``serve_kv_cache.py`` as
-    subprocesses on the card (their default device): each must exit 0 and
-    print its lines of EXAMPLES."""
+    """``port/examples/quickstart.py``, ``serve_kv_cache.py`` and
+    ``train_lm.py`` as subprocesses on the card (their default device), at
+    their defaults: each must exit 0 and print its lines of EXAMPLES
+    (``train_lm.py`` exits non-zero unless its loss falls)."""
     out = {}
     for name, lines in EXAMPLES.items():
         t0 = time.perf_counter()
@@ -3172,7 +3567,7 @@ def main() -> int:
     sys.path.insert(0, os.path.join(HERE, "port"))
     try:
         from repro_torch.configs import get_config
-        from repro_torch.kernels import build
+        from repro_torch.kernels import build, ops
     except ImportError as e:
         print(f"chip_smoke: the port's package is missing ({e})",
               file=sys.stderr)
@@ -3297,6 +3692,16 @@ def main() -> int:
     print(json.dumps({"phase": "I2", **moe_logit_checks(args.seed, "cuda"),
                       "card": card}))
     print(json.dumps({"phase": "J2", **ssm_logit_checks(args.seed, "cuda"),
+                      "card": card}))
+    ops.reset_launches()                 # the training path starts here
+    rec_k = drive_train(args.seed, card)
+    launches_k = dict(ops.launches)
+    rec_k["launches"] = launches_k
+    print(json.dumps(rec_k))
+    for k in checks:
+        k["launches_k"] = launches_k[k["name"]]
+    del rec_k
+    print(json.dumps({"phase": "K2", **train_grad_checks(args.seed, "cuda"),
                       "card": card}))
     print(json.dumps({"examples": run_examples(), "card": card}))
     for k in checks:

@@ -1,4 +1,5 @@
-"""Carry a store's state across from plain numpy arrays.
+"""Carry a store's state, a model's parameters and an optimizer's state
+across from plain numpy arrays.
 
 ``store_from_numpy(state, cfg)`` builds a port :class:`BourbonStore` whose
 answers equal those of the store the arrays were taken from (for example a
@@ -36,7 +37,7 @@ from repro_torch.core.store import BourbonStore, StoreConfig
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model, param_shapes
 
-__all__ = ["store_from_numpy", "params_from_numpy"]
+__all__ = ["store_from_numpy", "params_from_numpy", "opt_state_from_numpy"]
 
 
 def _model(m: dict | None, delta: int) -> PLRModel | None:
@@ -111,22 +112,51 @@ def params_from_numpy(tree: dict, cfg: ModelConfig,
                       device: str = "cuda") -> Model:
     """The port's model holding the reference parameter ``tree`` (numpy
     leaves, bf16 ones as float32) on ``device``."""
-    dev = resolve_device(device)
+    leaf = _leaf(resolve_device(device))
+    return Model(cfg, _walk(param_shapes(cfg), tree, leaf))
 
+
+def _leaf(dev: torch.device, dtype: torch.dtype | None = None):
+    """``leaf(spec, array, path)``: the array, of the spec's shape, as a
+    tensor of ``dtype`` (else the spec's) on ``dev``."""
     def leaf(spec, a, path):
         a = np.asarray(a)
         if tuple(a.shape) != tuple(spec.shape):
             raise ValueError(f"{'/'.join(path)}: shape {a.shape}, expected "
                              f"{spec.shape}")
         return torch.from_numpy(np.array(a, order="C")).to(
-            device=dev, dtype=spec.dtype)
+            device=dev, dtype=dtype or spec.dtype)
+    return leaf
 
-    def walk(specs, sub, path=()):
-        if not isinstance(specs, dict):
-            return leaf(specs, sub, path)
-        if set(sub) != set(specs):
-            raise ValueError(f"{'/'.join(path) or 'tree'}: keys "
-                             f"{sorted(sub)}, expected {sorted(specs)}")
-        return {k: walk(specs[k], sub[k], path + (k,)) for k in specs}
 
-    return Model(cfg, walk(param_shapes(cfg), tree))
+def _walk(specs, sub, leaf, path=()):
+    """``leaf(spec, array, path)`` over ``sub``, whose keys must be those
+    of the spec tree ``specs``."""
+    if not isinstance(specs, dict):
+        return leaf(specs, sub, path)
+    if not isinstance(sub, dict) or set(sub) != set(specs):
+        keys = sorted(sub) if isinstance(sub, dict) else type(sub).__name__
+        raise ValueError(f"{'/'.join(path) or 'tree'}: keys {keys}, "
+                         f"expected {sorted(specs)}")
+    return {k: _walk(specs[k], sub[k], leaf, path + (k,)) for k in specs}
+
+
+def opt_state_from_numpy(state: dict, cfg: ModelConfig,
+                         device: str = "cuda") -> dict:
+    """The port's AdamW state (``optim.adamw_init``'s tree) holding the
+    reference's ``state`` (numpy leaves): ``step`` as an int32 scalar and
+    ``m``, ``v`` and, when present, ``master`` as float32 trees shaped
+    like the parameters of ``cfg``, on ``device``."""
+    dev = resolve_device(device)
+    specs = param_shapes(cfg)
+    leaf = _leaf(dev, torch.float32)
+    extra = set(state) - {"step", "m", "v", "master"}
+    if extra or not {"step", "m", "v"} <= set(state):
+        raise ValueError(f"optimizer state keys {sorted(state)}, expected "
+                         "step, m, v and optionally master")
+    out = {"step": torch.tensor(int(np.asarray(state["step"])),
+                                dtype=torch.int32, device=dev)}
+    for k in ("m", "v", "master"):
+        if k in state:
+            out[k] = _walk(specs, state[k], leaf, (k,))
+    return out

@@ -104,10 +104,10 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (for MODEL_FLOPS = 6*N*D)."""
-        from .layers import spec_leaves  # local import to avoid cycle
+        from .layers import tree_leaves  # local import to avoid cycle
         from .model import param_shapes
         return sum(math.prod(s.shape)
-                   for s in spec_leaves(param_shapes(self)))
+                   for s in tree_leaves(param_shapes(self)))
 
     def active_param_count(self) -> int:
         """Params touched per token (MoE: top_k + shared experts only)."""

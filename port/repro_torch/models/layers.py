@@ -21,9 +21,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["Spec", "spec_leaves", "rms_norm", "layer_norm", "apply_norm",
-           "rope", "glu_mlp", "mlp_shapes", "norm_shapes", "shard",
-           "cross_entropy"]
+__all__ = ["Spec", "tree_leaves", "tree_paths", "tree_map", "tree_unflatten",
+           "rms_norm", "layer_norm", "apply_norm", "rope", "glu_mlp",
+           "mlp_shapes", "norm_shapes", "shard", "cross_entropy"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,12 +40,36 @@ class Spec:
                              f"{self.shape}")
 
 
-def spec_leaves(tree):
-    """The :class:`Spec` leaves of a nested dict, in sorted key order (the
-    order in which JAX flattens the reference's trees)."""
-    if isinstance(tree, Spec):
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict, in sorted key order (the order in which
+    JAX flattens the reference's trees)."""
+    if not isinstance(tree, dict):
         return [tree]
-    return [leaf for k in sorted(tree) for leaf in spec_leaves(tree[k])]
+    return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+
+
+def tree_paths(tree, prefix=()) -> list:
+    """(dotted name, leaf) of a nested dict, in sorted key order: the
+    reference's checkpoint names, e.g. ``stages.s0_attn_mlp.attn.wq``."""
+    if not isinstance(tree, dict):
+        return [(".".join(prefix), tree)]
+    return [x for k in sorted(tree)
+            for x in tree_paths(tree[k], prefix + (str(k),))]
+
+
+def tree_map(fn, *trees) -> dict:
+    """``fn`` over the leaves of nested dicts of one structure, in sorted
+    key order."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees))
+                for k in sorted(trees[0])}
+    return fn(*trees)
+
+
+def tree_unflatten(tree, leaves) -> dict:
+    """``leaves`` (in sorted key order) in the structure of ``tree``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
 
 
 def shard(x: torch.Tensor, axes: tuple) -> torch.Tensor:

@@ -13,24 +13,34 @@ of its stage's stacked tensors, made once.
 There is no ``jit`` and no scan: layers run as a Python loop, eagerly, on
 the parameters' device.  ``decode_step`` writes the caches (KV, and the
 recurrent blocks' state) in place and returns the same cache tree.
-``loss_fn`` comes with the training slice.
+
+Serving runs the parameters frozen (``requires_grad=False``) and builds no
+graph.  :meth:`Model.trainable` turns them into trainable leaves for
+``loss_fn`` and the optimizer; a trainable layer then takes its row of the
+stacked leaves on every call, so that autograd reaches the stacked
+parameter (a view made while the parameter was frozen has no ``grad_fn``,
+and would leave it without a gradient).
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core.engine import resolve_device
 
 from .blocks import BLOCKS
 from .config import ModelConfig
-from .layers import Spec, apply_norm, norm_shapes, shard
+from .layers import Spec, apply_norm, cross_entropy, norm_shapes, shard
 
-__all__ = ["param_shapes", "init_params", "forward", "decode_step",
-           "init_caches", "execution_runs", "Model", "ParamTree", "Layer",
-           "Caches"]
+__all__ = ["param_shapes", "init_params", "forward", "loss_fn",
+           "decode_step", "init_caches", "execution_runs", "Model",
+           "ParamTree", "Layer", "Caches", "REMATS"]
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -124,24 +134,31 @@ def _index(tree, j: int):
 
 
 class Layer(nn.Module):
-    """One layer of the stack: its block's forward and decode over ``p``,
-    row ``index`` of stage ``key``'s stacked parameters (views made once),
-    and over the same row of that stage's caches.  Holds no parameters of
-    its own: the stage owns them."""
+    """One layer of the stack: its block's forward and decode over row
+    ``index`` of stage ``key``'s stacked parameters ``stage``, and over the
+    same row of that stage's caches.  Holds no parameters of its own: the
+    stage owns them.  Frozen, it reads views of its row made once
+    (``p``); trainable, it takes the row anew on each call."""
 
-    def __init__(self, block: str, key: str, index: int, p: dict) -> None:
+    def __init__(self, block: str, key: str, index: int,
+                 stage: dict) -> None:
         super().__init__()
         self.block, self.key, self.index = block, key, index
-        self.p = p
+        self.stage = stage
+        self.p = _index(stage, index)
+        self.trainable = False
+
+    def rows(self) -> dict:
+        return _index(self.stage, self.index) if self.trainable else self.p
 
     def forward(self, x, cfg, aux):
-        return BLOCKS[self.block].forward(x, self.p, cfg, aux)
+        return BLOCKS[self.block].forward(x, self.rows(), cfg, aux)
 
     def decode(self, x, cfg, caches: "Caches", aux):
         """Decode one token through this layer, writing its row of the
         stage's stacked ``caches`` in place."""
         cache = caches.rows[self.key][self.index]
-        y, new = BLOCKS[self.block].decode(x, self.p, cfg, cache, aux)
+        y, new = BLOCKS[self.block].decode(x, self.rows(), cfg, cache, aux)
         _write_back(cache, new)
         return y
 
@@ -168,13 +185,21 @@ class Model(nn.Module):
         stages = {k: m.tree()
                   for k, m in self.params.stages.named_children()}
         self.blocks = nn.ModuleList(
-            Layer(block, key, off + j, _index(stages[key], off + j))
+            Layer(block, key, off + j, stages[key])
             for key, off, cnt, block in execution_runs(cfg)
             for j in range(cnt))
 
     @property
     def device(self) -> torch.device:
         return self.params.final_norm.device
+
+    def trainable(self, mode: bool = True) -> "Model":
+        """Make every parameter a trainable leaf (``mode``) or freeze it
+        again, with the layers reading their rows to match."""
+        self.params.requires_grad_(mode)
+        for layer in self.blocks:
+            layer.trainable = mode
+        return self
 
     def tree(self) -> dict:
         return self.params.tree()
@@ -231,28 +256,125 @@ def _logits(params: Model, cfg: ModelConfig, x):
     return apply_norm(x, p.final_norm, cfg) @ head
 
 
+# The reference's activation checkpointing (``_remat_wrap`` and the
+# "nested" branch of its ``forward``), as ``torch.utils.checkpoint``:
+#   None, "none"     no checkpointing;
+#   "full"           each layer checkpointed: only its input is kept, the
+#                    rest recomputed in the backward (``jax.checkpoint``);
+#   "dots"           each layer checkpointed, keeping the outputs of its
+#                    matrix products (mm, addmm, bmm, baddbmm) and
+#                    recomputing the rest: the counterpart of
+#                    ``checkpoint_dots`` (torch has no such named policy);
+#   "dots_no_batch"  the same keeping only the products without batch
+#                    dimensions (mm, addmm), as
+#                    ``checkpoint_dots_with_no_batch_dims``;
+#   "nested"         groups of G layers checkpointed, G the largest divisor
+#                    of the run's length up to its square root, and each
+#                    layer inside a group checkpointed again.  The
+#                    reference does this on runs of 4 layers or more and
+#                    raises ValueError("nested") on shorter ones; the port
+#                    checkpoints a shorter run's layers one by one.
+# Every choice computes the same values; only what the backward keeps and
+# recomputes differs.
+REMATS = (None, "none", "full", "dots", "dots_no_batch", "nested")
+_DOTS = {"dots": ("mm", "addmm", "bmm", "baddbmm"),
+         "dots_no_batch": ("mm", "addmm")}
+
+
+def _keep_dots(names, ctx, op, *args, **kwargs):
+    del ctx, args, kwargs
+    return (CheckpointPolicy.MUST_SAVE
+            if op.overloadpacket.__name__ in names
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _checkpointed(fn, remat: str):
+    """``fn`` run under ``torch.utils.checkpoint`` for ``remat``."""
+    kw = {}
+    if remat in _DOTS:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts,
+            functools.partial(_keep_dots, _DOTS[remat]))
+
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+    return run
+
+
+def _run_layers(layers, x, cfg, aux, remat):
+    """``x`` through ``layers`` (one run of the stack); returns x and the
+    sum of their auxiliary losses."""
+    def one(x, layer):
+        y, a = layer(x, cfg, aux)
+        return shard(y, ("batch", "seq", "embed")), a
+
+    def seq(x, group):
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for layer in group:
+            x, a = step(x, layer)
+            total = total + a
+        return x, total
+
+    if remat in (None, "none") or not torch.is_grad_enabled():
+        step = one
+        return seq(x, layers)
+    step = _checkpointed(one, "full" if remat == "nested" else remat)
+    if remat != "nested" or len(layers) < 4:
+        return seq(x, layers)
+    n = len(layers)
+    G = next(g for g in range(int(n ** 0.5), 0, -1) if n % g == 0)
+    inner = n // G
+    group = _checkpointed(seq, "full")
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for g in range(G):
+        x, a = group(x, layers[g * inner: (g + 1) * inner])
+        total = total + a
+    return x, total
+
+
 def forward(params: Model, cfg: ModelConfig, tokens=None, embeds=None,
             aux=None, remat: str | None = "full", last_only: bool = False,
             unroll: bool = False, scan_param_fsdp: bool = False):
     """Returns (logits (B,S,V), aux_loss ()).  tokens (B,S) int32 or
     embeds (B,S,D).  last_only: project only the final position (serving
-    prefill — avoids the (B,S,V) logits tensor).  ``remat``, ``unroll``
-    and ``scan_param_fsdp`` choose how the reference builds its program
-    (checkpointing, loop form, parameter sharding); without a gradient, a
-    mesh or a compiler none of them changes a value here, and they are
-    accepted for the reference's signature."""
-    del remat, unroll, scan_param_fsdp
+    prefill — avoids the (B,S,V) logits tensor).  ``remat`` chooses the
+    activation checkpointing of a backward (see REMATS; it changes no
+    value).  ``unroll`` and ``scan_param_fsdp`` choose how the reference
+    builds its program (loop form, parameter sharding); without a mesh or a
+    compiler neither changes anything here, and they are accepted for the
+    reference's signature."""
+    del unroll, scan_param_fsdp
+    if remat not in REMATS:
+        raise ValueError(remat)
     aux = aux or {}
     x = shard(_embed(params, cfg, tokens, embeds), ("batch", "seq", "embed"))
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in params.blocks:
-        x, a = layer(x, cfg, aux)
-        x = shard(x, ("batch", "seq", "embed"))
+    layers = list(params.blocks)
+    for key, off, cnt, _ in execution_runs(cfg):
+        x, a = _run_layers(layers[:cnt], x, cfg, aux, remat)
+        layers = layers[cnt:]
         aux_total = aux_total + a
     if last_only:
         x = x[:, -1:, :]
     logits = shard(_logits(params, cfg, x), ("batch", "seq", "vocab"))
     return logits, aux_total
+
+
+def loss_fn(params: Model, cfg: ModelConfig, batch: dict,
+            remat: str | None = "full", unroll: bool = False,
+            scan_param_fsdp: bool = False):
+    """Returns (nll + aux, {"nll", "aux"}) for ``batch``'s ``tokens`` (or
+    ``embeds``), ``labels`` and optional ``image_embed``."""
+    logits, aux = forward(params, cfg,
+                          tokens=batch.get("tokens"),
+                          embeds=batch.get("embeds"),
+                          aux={k: v for k, v in batch.items()
+                               if k in ("image_embed",)},
+                          remat=remat, unroll=unroll,
+                          scan_param_fsdp=scan_param_fsdp)
+    nll = cross_entropy(logits, batch["labels"], cfg.logit_softcap)
+    return nll + aux, {"nll": nll, "aux": aux}
 
 
 # ------------------------------------------------------------------- decode

@@ -4,7 +4,10 @@ reference's lines exactly (its store, data and seeds are the same), with
 hit rate 1.000 and every lookup on the model path;
 ``serve_kv_cache.py`` serves every one of its 16 requests in the
 reference's number of engine steps (the lengths of its prompts and
-outputs fix them; its random weights differ)."""
+outputs fix them; its random weights differ); ``train_lm.py`` trains a
+narrow, shallow model on the CPU and its loss falls (the reference's
+example at its defaults, ~100M parameters for 200 steps, is for the
+card: ``chip_smoke.py`` runs the port's there)."""
 
 import importlib.util
 import os
@@ -50,10 +53,22 @@ def test_serve_kv_cache_serves_every_request(capsys):
     assert got[1].startswith("session store: 0 live records")
 
 
-@pytest.mark.parametrize("name", ["quickstart", "serve_kv_cache"])
+def test_train_lm_loss_falls_on_the_cpu(capsys):
+    losses = _example("train_lm").main([
+        "--device", "cpu", "--d-model", "64", "--layers", "2",
+        "--steps", "21"])
+    out = capsys.readouterr().out.splitlines()
+    assert [s for s, _ in losses] == [0, 20]
+    assert losses[-1][1] < losses[0][1]
+    assert out[-1].startswith("loss ") and out[-1].endswith(
+        "over 21 steps")
+
+
+@pytest.mark.parametrize("name", ["quickstart", "serve_kv_cache",
+                                  "train_lm"])
 def test_examples_take_the_card_unless_asked(name, monkeypatch):
     """The default device is the card: without one, the example stops
-    before it serves or stores anything."""
+    before it serves, stores or trains anything."""
     import torch
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     mod = _example(name)

@@ -59,7 +59,13 @@ def test_importing_every_module_loads_no_jax_or_repro():
             "repro_torch.models.blocks", "repro_torch.models.model",
             "repro_torch.configs", "repro_torch.configs.base",
             "repro_torch.configs.qwen2_0_5b", "repro_torch.launch",
-            "repro_torch.launch.serve"} <= set(mods)
+            "repro_torch.launch.serve", "repro_torch.launch.steps",
+            "repro_torch.launch.train", "repro_torch.optim",
+            "repro_torch.optim.adamw", "repro_torch.optim.schedule",
+            "repro_torch.optim.grad_compress", "repro_torch.data",
+            "repro_torch.data.pipeline", "repro_torch.checkpoint",
+            "repro_torch.checkpoint.ckpt", "repro_torch.train",
+            "repro_torch.train.trainer"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, sys
         sys.path.insert(0, {PORT!r})

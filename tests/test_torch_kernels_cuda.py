@@ -36,7 +36,10 @@ card unless given ``device="cpu"``.  The model case holds
 deepseek-v2-lite's MoE FFN and MLA decode at full width, one layer, in
 float32 on the card against the CPU; the recurrent cases hold hymba-1.5b
 (one layer) and xlstm-1.3b (one unit) the same way, on both sides of
-their chunk thresholds."""
+their chunk thresholds.  The training cases run three train steps of
+qwen2's smoke config on the card against the CPU from the same
+parameters, and save a bf16 trainer state from the card and restore it
+bit for bit."""
 
 import functools
 import os
@@ -1137,3 +1140,88 @@ def _cpu_tree(tree):
     if isinstance(tree, dict):
         return {k: _cpu_tree(v) for k, v in tree.items()}
     return tree.detach().cpu()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_train_step_on_card_matches_cpu(remat):
+    """Three ``build_train_step`` steps (forward, backward through autograd,
+    AdamW in place) of qwen2's f32 smoke config, TF32 off, from the same
+    parameters on the card and on the CPU: loss and grad norm within 1e-5
+    relative, each parameter within lr / 10 (an entry whose gradient is
+    rounding noise moves by a share of lr; the CPU-against-reference
+    readings are in test_torch_train_step.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import TrainConfig, build_train_step
+    from repro_torch.models import Model, init_params
+    from repro_torch.optim import adamw_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("qwen2-0.5b")
+    tc = TrainConfig(remat=remat)
+    card = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    cpu = Model(cfg, _cpu_tree(card.tree()))
+    sc, sh = adamw_init(card, tc.optim), adamw_init(cpu, tc.optim)
+    step = build_train_step(cfg, tc)
+    rng = np.random.default_rng(3)
+    for _ in range(3):
+        t = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 33)
+                                          ).astype(np.int32))
+        b = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+        card, sc, mc = step(card, sc, {k: v.cuda() for k, v in b.items()})
+        cpu, sh, mh = step(cpu, sh, b)
+        for k in ("loss", "grad_norm"):
+            assert abs(float(mc[k]) - float(mh[k])) <= 1e-5 * float(mh[k])
+    for got, want in zip(card.parameters(), cpu.parameters()):
+        assert (got.detach().cpu() - want.detach()).abs().max() <= \
+            tc.optim.lr / 10
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_from_the_card(tmp_path):
+    """A bf16 trainer state (parameters bf16, master and moments f32) on
+    the card saves through ``AsyncSaver`` and restores bit for bit, onto
+    the card and onto the CPU, bf16 leaves as bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    import dataclasses
+
+    from repro_torch.checkpoint.ckpt import AsyncSaver, restore
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = dataclasses.replace(get_smoke_config("qwen2-0.5b"),
+                              dtype="bfloat16")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(1))
+    state = {"p": params.tree(), "o": adamw_init(params, AdamWConfig())}
+    host = _cpu_tree(state)
+    saver = AsyncSaver()
+    saver.save_async(state, tmp_path, 6)
+    with torch.no_grad():
+        params.params.embed.add_(1.0)   # after the snapshot
+    saver.wait()
+    for like, want in ((state, _to_card(host)), (host, host)):
+        got, step = restore(like, tmp_path)
+        assert step == 6
+        assert _bits(got) == _bits(want)
+    assert got["p"]["embed"].dtype == torch.bfloat16
+
+
+def _bits(tree, name=""):
+    """{name: (device, dtype, shape, bytes)} of a tree's leaves."""
+    if isinstance(tree, dict):
+        return {n: v for k in sorted(tree)
+                for n, v in _bits(tree[k], f"{name}.{k}").items()}
+    t = tree.detach()
+    return {name: (t.device, t.dtype, tuple(t.shape),
+                   t.cpu().reshape(-1).view(torch.uint8).numpy().tobytes())}
+
+
+def _to_card(tree):
+    if isinstance(tree, dict):
+        return {k: _to_card(v) for k, v in tree.items()}
+    return tree.cuda()
+

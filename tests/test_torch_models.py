@@ -40,7 +40,7 @@ from repro_torch.models import (decode_step, forward, init_caches,  # noqa: E402
 from repro_torch.models import attention as patt  # noqa: E402
 from repro_torch.models import layers as players  # noqa: E402
 from repro_torch.models.blocks import BLOCKS  # noqa: E402
-from repro_torch.models.layers import spec_leaves  # noqa: E402
+from repro_torch.models.layers import tree_leaves  # noqa: E402
 
 ARCHS = ("qwen2-0.5b", "qwen2.5-14b", "glm4-9b", "command-r-plus-104b")
 BLOCK_ARCHS = ("mixtral-8x22b", "deepseek-v2-lite-16b",
@@ -310,7 +310,7 @@ def test_param_count_and_shapes_match_reference(arch):
                       (get_config, jget_config)):
         cfg, jcfg = get(arch), jget(arch)
         assert cfg.param_count() == jcfg.param_count()
-        specs = spec_leaves(param_shapes(cfg))
+        specs = tree_leaves(param_shapes(cfg))
         jspecs = jax.tree.leaves(jmodel.param_shapes(jcfg))
         assert [s.shape for s in specs] == [tuple(s.shape) for s in jspecs]
         assert [s.axes for s in specs] == [s.axes for s in jspecs]
@@ -328,7 +328,7 @@ def test_block_param_counts_and_shapes_match_reference(arch):
         cfg, jcfg = get(arch), jget(arch)
         assert cfg.param_count() == jcfg.param_count()
         assert cfg.active_param_count() == jcfg.active_param_count()
-        specs = spec_leaves(param_shapes(cfg))
+        specs = tree_leaves(param_shapes(cfg))
         jspecs = jax.tree.leaves(jmodel.param_shapes(jcfg))
         assert [(s.shape, s.axes, str(s.dtype).split(".")[-1])
                 for s in specs] == \
@@ -353,8 +353,7 @@ def test_init_params_rules_and_determinism():
     # stacked biases are (L, n) matrices, drawn like every matrix
     assert st["attn"]["bq"].shape == (cfg.n_units, cfg.n_heads * cfg.hd)
     assert st["attn"]["bq"].abs().sum() > 0
-    for x, y, z in zip(spec_leaves_t(ta), spec_leaves_t(tb),
-                       spec_leaves_t(tc)):
+    for x, y, z in zip(tree_leaves(ta), tree_leaves(tb), tree_leaves(tc)):
         assert torch.equal(x, y)
         if x.dim() >= 2 and x.std() > 0.01:
             assert not torch.equal(x, z)
@@ -365,12 +364,6 @@ def test_init_params_rules_and_determinism():
     assert bf["final_norm"].dtype == torch.float32
     # drawn in f32, then cast: the same draws as the f32 model
     assert torch.equal(bf["embed"], ta["embed"].to(torch.bfloat16))
-
-
-def spec_leaves_t(tree):
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in spec_leaves_t(tree[k])]
-    return [tree]
 
 
 def test_bf16_smoke_matches_reference():
@@ -425,7 +418,7 @@ def test_unported_blocks_and_bad_trees_raise():
     from repro_torch.configs import ARCHS as PORT_ARCHS
     assert len(PORT_ARCHS) == 10
     for arch in PORT_ARCHS:
-        assert spec_leaves(param_shapes(get_config(arch)))
+        assert tree_leaves(param_shapes(get_config(arch)))
     assert {"hybrid", "mlstm", "slstm"} <= set(BLOCKS)
     with pytest.raises(KeyError, match="unknown block 'nope'"):
         BLOCKS["nope"]

@@ -33,7 +33,7 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.models import attention as patt  # noqa: E402
 from repro_torch.models import moe as pmoe  # noqa: E402
-from repro_torch.models.layers import spec_leaves  # noqa: E402
+from repro_torch.models.layers import tree_leaves  # noqa: E402
 from repro_torch.serving import engine as peng  # noqa: E402
 
 TOL = 1e-5
@@ -270,7 +270,7 @@ def test_new_shapes_match_reference():
                            xcfg, jxcfg)):
         for dt, jdt in ((torch.bfloat16, jnp.bfloat16),
                         (torch.float32, jnp.float32)):
-            got = spec_leaves(pf(c, dt))
+            got = tree_leaves(pf(c, dt))
             want = jax.tree.leaves(jf(jc, jdt))
             assert [(s.shape, s.axes, str(s.dtype).split(".")[-1])
                     for s in got] == \

@@ -51,7 +51,7 @@ from repro_torch.models import (decode_step, forward, init_caches,  # noqa: E402
                                 init_params, param_shapes)
 from repro_torch.models import ssm as pssm  # noqa: E402
 from repro_torch.models.blocks import BLOCKS  # noqa: E402
-from repro_torch.models.layers import Spec, spec_leaves  # noqa: E402
+from repro_torch.models.layers import Spec, tree_leaves  # noqa: E402
 from repro_torch.serving import engine as peng  # noqa: E402
 
 TOL = 1e-5
@@ -482,7 +482,7 @@ def test_param_count_and_shapes_match_reference(arch):
         cfg, jcfg = get(arch), jget(arch)
         assert cfg.param_count() == jcfg.param_count()
         assert cfg.active_param_count() == jcfg.active_param_count()
-        specs = spec_leaves(param_shapes(cfg))
+        specs = tree_leaves(param_shapes(cfg))
         jspecs = jax.tree.leaves(jmodel.param_shapes(jcfg))
         assert [(s.shape, s.axes, str(s.dtype).split(".")[-1])
                 for s in specs] == \
@@ -532,7 +532,7 @@ def test_params_from_numpy_carries_the_f32_leaves_of_a_bf16_config():
             assert str(g.dtype).split(".")[-1] == str(jt.dtype), path
             assert np.array_equal(g.float().numpy(), w), path
         walk(got, want, jp)
-        f32 = [s for s in spec_leaves(param_shapes(cfg))
+        f32 = [s for s in tree_leaves(param_shapes(cfg))
                if s.dtype == torch.float32]
         assert len(f32) >= (4 if arch == HYMBA else 3)
 
