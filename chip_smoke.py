@@ -143,6 +143,27 @@
         ``train_lm.py`` (200 steps of a d 512, 8-layer model) run as
         processes of their own on the card and must print the reference
         examples' facts (EXAMPLES).
+     L  the launch layer.  L1: ``python -m repro_torch.launch.dryrun
+        --store`` as a process of its own: the paper's workload on the
+        production (16, 16) mesh of the card repeated, 2^30 keys in 256
+        shard rows of 2^22 (16 GiB of keys and value pointers), three GETs
+        of 2^20 probes (half absent) through ``build_dist_get``, every
+        answer checked against the state's closed form (each row a PLR
+        model of 512 segments that misplaces keys by up to delta); its
+        launches (``launches_l``) must be one ``plr_lookup`` and one
+        ``bounded_search`` a mesh position a GET, and the two kernels are
+        then held against their plain versions on position 0's row at
+        2^20 probes, the GET's gathered batch (``store_shape``) and probes
+        of the row's own keys (``store_row_shape``); its line has the
+        plan's bytes a position beside the measured peak and the GET
+        times.  L2: the dry run's plans (``meta``, no memory) of
+        qwen2-0.5b x train_4k, deepseek-v2-lite-16b x decode_32k and
+        hymba-1.5b x long_500k on the (16, 16) mesh at full width and
+        depth, qwen2 again at units 1 and 2 (extrapolated, they must give
+        its full plan's FLOPs), hymba on the (2, 16, 16) mesh, and
+        ``roofline.report`` over them.  L3: two train steps of qwen2-0.5b at full width under
+        ``DEFAULT_RULES`` on a (1, 1) mesh of the card, bit for bit the
+        same steps with ``rules=None``.
    After the timed batches of C, D, E and G, 4 of the phase's batches
    replay through its dispatch half (``BourbonStore.dispatch_get`` in C,
    ``ShardedStore.dispatch_get`` in D and G, and in E shard 0's
@@ -165,7 +186,9 @@
    tables and phase E's one-row level model; ``bounded_search`` also at
    δ = 40 and ``bloom_probe`` at k = 12; the three kernels of phase F also
    at the batch sizes F dispatched, on its probes; the four descent
-   kernels also at phase H's session index, on H's, I's and J's batches),
+   kernels also at phase H's session index, on H's, I's and J's batches;
+   ``plr_lookup`` and ``bounded_search`` also at phase L1's shard row, on
+   its GET batches of 2^20 probes),
    times both with CUDA events and torch.profiler, and computes the
    kernel's lower bound from the bytes its probes must gather and the
    per-launch floor (the device time of one trivial PyTorch kernel over
@@ -2864,6 +2887,245 @@ def run_examples() -> dict:
     return out
 
 
+# ----------------------------------------------------------------------------
+# the launch layer: the store cell, the model plans, steps under rules (L)
+# ----------------------------------------------------------------------------
+
+L_CELLS = (("qwen2-0.5b", "train_4k"), ("deepseek-v2-lite-16b", "decode_32k"),
+           ("hymba-1.5b", "long_500k"))
+L_DEPTH_CELL = ("qwen2-0.5b", "train_4k")   # also planned at units 1 and 2
+L_MULTI_CELL = ("hymba-1.5b", "long_500k")  # also on the (2, 16, 16) mesh
+L3_BATCH, L3_SEQ, L3_STEPS = 4, 512, 2
+STORE_KERNELS = ("plr_lookup", "bounded_search")
+STORE_ROW_SEED = 7      # the store shape's "in_row" probe sets
+DEPTH_TOL = 1e-6        # L2's full-plan FLOPs against units 1 and 2
+
+
+def drive_store_cell(card: str) -> dict:
+    """Phase L1: ``python -m repro_torch.launch.dryrun --store`` at its
+    defaults (2^30 keys in 256 shard rows of 2^22 on the (16, 16) mesh of
+    the card repeated, GETs of 2^20 probes, half of them absent), as a
+    process of its own; it checks every answer and fails on a wrong one.
+    Fails unless ``plr_lookup`` and ``bounded_search`` launched once a
+    mesh position a GET and no other kernel launched.  Returns its
+    record."""
+    d = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    try:
+        out = os.path.join(d, "store.json")
+        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "port"))
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                            "--store", "--out", out], capture_output=True,
+                           text=True, timeout=600, cwd=HERE, env=env)
+        if r.returncode != 0:
+            fail(f"the store cell exited {r.returncode}: {r.stderr[-3000:]}")
+        with open(out) as f:
+            rec = json.load(f)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    rec["process_s"] = time.perf_counter() - t0
+    m = rec["measured"]
+    want = {name: (rec["n_devices"] if name in STORE_KERNELS else 0)
+            for name in KERNELS}
+    if m["launches_per_get"] != want:
+        fail(f"store cell launches a GET {m['launches_per_get']}, expected "
+             f"{want}")
+    from repro_torch.launch.dryrun import STORE_GETS
+    if m["answers_checked"] != STORE_GETS * rec["probe_batch"]:
+        fail(f"the store cell checked {m['answers_checked']} answers")
+    return rec
+
+
+def store_shape_checks(rec: dict) -> dict:
+    """``plr_lookup`` and ``bounded_search`` against their plain versions
+    on mesh position 0's shard row of the store cell (2^22 keys, a model
+    of 512 segments) over TIMED_BATCHES sets of 2^20 probes of two kinds:
+    "gathered", the cell's GET batches as every position sees them (the
+    whole batch against row 0: about one probe in 256 falls in the row,
+    the rest clamp to its ends), and "in_row", probes drawn from row 0's
+    own keys, half of them moved to the absent key after (every probe a
+    real bisect and window).  ``bounded_search`` gets the plain positions.
+    The bounds count bytes that many probes share once
+    (``_distinct_plr_work``, ``_distinct_bounded_work``).  Returns
+    {kernel: {"store_shape": gathered record, "store_row_shape": in_row
+    record}}."""
+    import torch
+    from repro_torch.core.distributed import DistStoreConfig
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.dryrun import (_store_segments, store_keys,
+                                           store_probes, store_row)
+    dev = torch.device("cuda")
+    S = rec["n_devices"]
+    cfg = DistStoreConfig(n_keys=rec["n_keys"], probe_batch=rec["probe_batch"])
+    row = store_row(0, S, cfg, dev)
+    tables = (row["starts"], row["slopes"], row["icepts"], row["nseg"],
+              row["n"])
+    rows = torch.zeros(cfg.probe_batch, dtype=torch.int32, device=dev)
+    seg = _store_segments(S, cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(STORE_ROW_SEED)
+    absent = (torch.arange(cfg.probe_batch, device=dev) % 2).to(torch.int64)
+
+    def in_row():
+        i = torch.randint(0, int(row["n"][0]), (cfg.probe_batch,),
+                          generator=gen, dtype=torch.int64, device=dev)
+        return store_keys(seg, i) + absent
+
+    out = {name: {} for name in STORE_KERNELS}
+    for kind, draw in (("store_shape",
+                        lambda g: store_probes(cfg, g, dev, S)[0]),
+                       ("store_row_shape", lambda g: in_row())):
+        sets = []
+        for g in range(TIMED_BATCHES):
+            p = draw(g)
+            sets.append((rows, p, ref.plr_lookup_rows_ref(*tables, rows, p)))
+        shape = {"S": row["starts"].shape[1], "nseg": int(row["nseg"][0]),
+                 "C": row["keys"].shape[1], "B": cfg.probe_batch, "rows": S,
+                 "in_row": sum(int(((p >= row["lo"][0])
+                                    & (p <= row["hi"][0])).sum())
+                               for _, p, _ in sets) / len(sets)}
+        out["plr_lookup"][kind] = {**_measure(
+            *_plr_fns(tables, sets), _distinct_plr_work(tables, sets),
+            _symbol("plr_lookup")), "shape": shape}
+        out["bounded_search"][kind] = {**_measure(
+            lambda i: ops.bounded_search(row["keys"], row["n"], rows,
+                                         sets[i][2], sets[i][1], cfg.delta),
+            lambda i: ref.bounded_search_rows_ref(row["keys"], row["n"], rows,
+                                                  sets[i][2], sets[i][1],
+                                                  cfg.delta),
+            _distinct_bounded_work(row["keys"], sets, cfg.delta),
+            _symbol("bounded_search")), "shape": shape}
+        del sets
+    del row, seg
+    torch.cuda.empty_cache()
+    return out
+
+
+def drive_plans(card: str) -> dict:
+    """Phase L2: the dry run's plans of L_CELLS on the (16, 16) mesh at
+    full width and depth, L_DEPTH_CELL again at ``units`` 1 and 2, and
+    L_MULTI_CELL on the (2, 16, 16) mesh, written as the sweep writes
+    them; then ``roofline.report`` over them, printed.  Fails on a cell
+    without a plan or a report row, and unless the reference's depth
+    extrapolation (``roofline._extrapolated``) from units 1 and 2 gives
+    L_DEPTH_CELL's full-depth FLOPs within DEPTH_TOL: the plan counts
+    every layer's products alike.  Its bytes are extrapolated and
+    reported, not held: each layer's backward through its row of the
+    stacked leaves writes a zero gradient of the whole stack, so the
+    bytes grow with depth squared, which a line through two depths
+    misses (the reason ``analyze_cell`` reads the full plan).  Returns
+    {cell: summary}."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, roofline
+    d = tempfile.mkdtemp(prefix="chip_smoke_plans_")
+    runs = [(a, s, None, False) for a, s in L_CELLS]
+    runs += [(*L_DEPTH_CELL, u, False) for u in (1, 2)]
+    runs.append((*L_MULTI_CELL, None, True))
+    out = {}
+    try:
+        for arch, shape, units, multi in runs:
+            t0 = time.perf_counter()
+            rec = dryrun.run_cell(arch, shape, units=units, multi_pod=multi,
+                                  metering=units is not None)
+            if "memory" not in rec or "cost" not in rec:
+                fail(f"no plan for {arch} x {shape}: {rec}")
+            tag = "multi" if multi else "single"
+            suffix = f"__u{units}" if units else ""
+            with open(os.path.join(
+                    d, f"{arch}__{shape}__{tag}{suffix}.json"), "w") as f:
+                json.dump(rec, f)
+            out[f"{arch}__{shape}__{tag}{suffix}"] = {
+                "s": time.perf_counter() - t0, "memory": rec["memory"],
+                "cost": rec["cost"], "collectives": rec["collectives"],
+                "per_position_batch": rec["per_position_batch"],
+                "microbatch": rec["microbatch"]}
+        full, u1, u2 = (out[f"{L_DEPTH_CELL[0]}__{L_DEPTH_CELL[1]}__single"
+                            f"{sfx}"] for sfx in ("", "__u1", "__u2"))
+        n_units = get_config(L_DEPTH_CELL[0]).n_units
+        for key in ("flops", "bytes accessed"):
+            est = roofline._extrapolated(full, u1, u2, key, n_units)
+            rel = abs(est / full["cost"][key] - 1)
+            full.setdefault("depth_check", {})[key] = {
+                "full": full["cost"][key], "from_units_1_2": est, "rel": rel}
+            if key == "flops" and rel > DEPTH_TOL:
+                fail(f"L2: {key} of {L_DEPTH_CELL} extrapolated from units "
+                     f"1 and 2 is {est}, the full plan {full['cost'][key]}")
+        for tag in ("single", "multi"):
+            rep = roofline.report(d, tag)
+            print(f"roofline ({tag}, {card}):")
+            print(rep)
+            cells = roofline.load_cells(d, tag)
+            for key, c in cells.items():
+                if "dominant" not in c:
+                    fail(f"no roofline row for {key}: {c}")
+                out[f"{key}__{tag}"].update(
+                    {k: c[k] for k in ("dominant", "t_compute_s",
+                                       "t_memory_s", "t_collective_s",
+                                       "useful_ratio", "roofline_fraction",
+                                       "memory_peak_gib", "fits_hbm")})
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def drive_rules_steps(seed: int, device: str = "cuda", cfg=None) -> dict:
+    """Phase L3: L3_STEPS train steps of K_ARCH at full width (bf16, the
+    f32 master, remat "full") on ``build_train_step`` with
+    ``DEFAULT_RULES`` on a (1, 1) mesh of the device, and the same steps
+    from the same ``init_params`` draw with ``rules=None``: every loss and
+    every updated leaf, parameters and optimizer state, must be equal bit
+    for bit.  Both run with torch's deterministic algorithms (the
+    embedding gradient's accumulation is in no fixed order otherwise), so
+    that what differs is the rules alone.  ``cfg`` replaces K_ARCH's
+    config (a CPU rehearsal)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import upload
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.launch.sharding import DEFAULT_RULES, ShardingRules
+    from repro_torch.launch.steps import (TrainConfig, build_train_step,
+                                          init_train_state)
+    from repro_torch.models.layers import tree_paths
+    cfg = cfg or get_config(K_ARCH)
+    dev = torch.device(device)
+    mesh = make_mesh((1, 1), ("data", "model"), [device])
+    rng = np.random.default_rng(seed + 60)
+    batches = []
+    for _ in range(L3_STEPS):
+        t = rng.integers(0, cfg.vocab, (L3_BATCH, L3_SEQ + 1)).astype(
+            np.int32)
+        batches.append({"tokens": upload(np.ascontiguousarray(t[:, :-1]),
+                                         dev),
+                        "labels": upload(np.ascontiguousarray(t[:, 1:]), dev)})
+    runs = []
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for rules, m in ((ShardingRules(DEFAULT_RULES), mesh), (None, None)):
+            tc = TrainConfig()
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            params, opt = init_train_state(cfg, tc, gen, device)
+            step = build_train_step(cfg, tc, rules, m)
+            losses = []
+            for b in batches:
+                params, opt, met = step(params, opt, b)
+                losses.append(met["loss"])
+            runs.append((losses, dict(tree_paths({"p": params.tree(),
+                                                  "o": opt}))))
+            del params, opt
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+    (la, ta), (lb, tb) = runs
+    diff_losses = sum(not torch.equal(a, b) for a, b in zip(la, lb))
+    diff_leaves = [n for n in ta if not torch.equal(ta[n], tb[n])]
+    if diff_losses or diff_leaves:
+        fail(f"phase L3: {diff_losses} losses and {len(diff_leaves)} leaves "
+             f"differ under the rules (first {diff_leaves[:3]})")
+    return {"steps": L3_STEPS, "batch": [L3_BATCH, L3_SEQ],
+            "losses": [float(x) for x in la], "leaves_equal": len(ta),
+            "mesh": [1, 1]}
+
+
 def profile_steps(step, n: int) -> dict:
     """Device time of ``n`` turns of the serving loop (``step()``, False
     once drained) under torch.profiler against the wall clock; each engine
@@ -3008,6 +3270,68 @@ def _bounded_work(keys, sets, delta: int):
                            2 * delta + 3)
         return (int((8 + 4 + 4 + 4 + 4 + 1 + 8 * read).sum()),
                 int((3 * read + 2).sum()))
+    return work
+
+
+def _distinct_plr_work(tables, sets):
+    """Bytes and operations ``plr_lookup`` needs on probe set i when many
+    probes share a table, as at the store shape (every probe on one row):
+    each probe's key, row and output (16 B), and each table entry once a
+    launch however many probes read it — the starts on any probe's bisect
+    path, the slope and intercept of each segment chosen, nseg and n of
+    each row used (8 B each, 4 for nseg and n); the operations of
+    :func:`_plr_work`."""
+    import torch
+    starts, slopes, icepts, nseg, n = tables
+    ops_of = _plr_work(tables, sets)
+
+    def work(i):
+        rows, p = sets[i][0].long(), sets[i][1].to(torch.float64)
+        F, S = starts.shape
+        read = torch.zeros(F * S, dtype=torch.bool, device=p.device)
+        lo = torch.zeros_like(rows)
+        hi = nseg[rows].long().clamp(1, S)
+        while bool((lo < hi).any()):
+            act = lo < hi
+            mid = (lo + hi) >> 1
+            read[(rows * S + mid)[act]] = True
+            right = starts[rows, mid.clamp(max=S - 1)] <= p
+            lo = torch.where(act & right, mid + 1, lo)
+            hi = torch.where(act & ~right, mid, hi)
+        seg = (lo - 1).clamp(min=0)
+        used = torch.unique(rows * S + seg).numel()
+        n_rows = torch.unique(rows).numel()
+        return (16 * rows.numel() + 8 * int(read.sum()) + 16 * used
+                + 8 * n_rows, ops_of(i)[1])
+    return work
+
+
+def _distinct_bounded_work(keys, sets, delta: int):
+    """Bytes and operations ``bounded_search`` over ``keys`` (F, C) needs
+    on probe set i = (rows, probes, pos) when windows overlap, as at the
+    store shape (every probe on one row, most clamped to its ends): each
+    probe's key, row, pos and outputs (21 B), n of each row used (4 B),
+    and each key once a launch that any probe's window reads up to its
+    first match (the whole window on a miss); the operations of
+    :func:`_bounded_work`."""
+    import torch
+    ops_of = _bounded_work(keys, sets, delta)
+
+    def work(i):
+        rows, p, pos = sets[i]
+        F, C = keys.shape
+        r = rows.long()
+        offs = torch.arange(-(delta + 1), delta + 2, device=p.device)
+        win = (pos.long()[:, None] + offs).clamp(0, C - 1)
+        eq = keys[r[:, None], win] == p[:, None]
+        upto = torch.where(eq.any(1), eq.to(torch.uint8).argmax(1),
+                           2 * delta + 2)
+        need = torch.arange(2 * delta + 3, device=p.device) <= upto[:, None]
+        read = torch.zeros(F * C, dtype=torch.bool, device=p.device)
+        read[(r[:, None] * C + win)[need]] = True
+        n_rows = torch.unique(r).numel()
+        return (21 * r.numel() + 4 * n_rows + 8 * int(read.sum()),
+                ops_of(i)[1])
     return work
 
 
@@ -3704,13 +4028,46 @@ def main() -> int:
     print(json.dumps({"phase": "K2", **train_grad_checks(args.seed, "cuda"),
                       "card": card}))
     print(json.dumps({"examples": run_examples(), "card": card}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec_l1 = drive_store_cell(card)      # its own process counts launches
+    m = rec_l1["measured"]
+    print(json.dumps({
+        "phase": "L1", "mesh": rec_l1["mesh"], "n_keys": rec_l1["n_keys"],
+        "probe_batch": rec_l1["probe_batch"],
+        "plan_bytes_per_position": rec_l1["memory"]["peak_bytes"],
+        "plan_bytes_all_positions": (rec_l1["memory"]["peak_bytes"]
+                                     * rec_l1["n_devices"]),
+        "plan_memory": rec_l1["memory"],
+        "plan_collectives": rec_l1["collectives"],
+        "measured_peak_device_bytes": m["peak_device_bytes"],
+        "state_bytes": m["state_bytes"], "build_s": m["build_s"],
+        "median_get_ms": m["median_get_ms"], "get_ms": m["get_ms"],
+        "launches_per_get": m["launches_per_get"],
+        "answers_checked": m["answers_checked"],
+        "process_s": rec_l1["process_s"], "card": m["card"]}))
+    store_shapes = store_shape_checks(rec_l1)
+    for k in checks:
+        k["launches_l"] = int(m["launches_per_get"][k["name"]] * m["gets"])
+        k["launches"] += k["launches_l"]
+        k.update(store_shapes.get(k["name"], {}))
+    t0 = time.perf_counter()
+    plans = drive_plans(card)
+    print(json.dumps({"phase": "L2", "cells": plans,
+                      "s": time.perf_counter() - t0, "card": card}))
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rec_l3 = drive_rules_steps(args.seed)
+    print(json.dumps({"phase": "L3", **rec_l3, "launches": dict(ops.launches),
+                      "s": time.perf_counter() - t0, "card": card}))
     for k in checks:
         other = {tag: k[tag]["mismatches"]
                  for tag in ("wide_check", "shard_shape", "level_model_shape",
                              "engine_shape", "served_shape", "mesh_shape",
                              "mesh_dispatched_shape", "mesh_example_shape",
                              "session_shape", "session_shape_i",
-                             "session_shape_j")
+                             "session_shape_j", "store_shape",
+                             "store_row_shape")
                  if tag in k}
         if k["mismatches"] != 0 or any(other.values()):
             fail(f"{k['name']} disagrees with its plain version on "

@@ -34,7 +34,7 @@ import threading
 import numpy as np
 import torch
 
-from repro_torch.models.layers import tree_paths, tree_unflatten
+from repro_torch.models.layers import tree_leaves, tree_paths, tree_unflatten
 
 __all__ = ["save", "save_async", "restore", "latest_step", "AsyncSaver"]
 
@@ -150,12 +150,11 @@ def restore(tree_like, directory, step: int | None = None,
     """Restore into the structure of ``tree_like`` (a nested dict of
     tensors): each leaf's shape and dtype must equal the saved ones, else
     ``ValueError``.  Returns (tree, step), each leaf a new tensor on its
-    ``tree_like`` leaf's device.  ``shardings`` (the reference places
-    shards by ``NamedSharding``) must be None until ``launch/sharding`` is
-    ported."""
-    if shardings is not None:
-        raise NotImplementedError("restore onto shardings waits for "
-                                  "launch/sharding (ROADMAP Queue 1, 7e)")
+    ``tree_like`` leaf's device, or with ``shardings`` (a tree of
+    :class:`~repro_torch.launch.sharding.Sharded` of the same structure,
+    as ``param_sharding`` and ``opt_state_specs`` give) on its spec's mesh
+    device, once the spec is checked against the leaf's shape.  A mesh of
+    distinct devices raises ``NotImplementedError``."""
     d = pathlib.Path(directory)
     if step is None:
         step = latest_step(d)
@@ -164,8 +163,12 @@ def restore(tree_like, directory, step: int | None = None,
     cd = d / f"step_{step:08d}"
     manifest = json.loads((cd / "manifest.json").read_text())
     leaves = manifest["leaves"]
+    named = tree_paths(tree_like)
+    specs = None if shardings is None else tree_leaves(shardings)
+    if specs is not None and len(specs) != len(named):
+        raise ValueError(f"{len(specs)} shardings for {len(named)} leaves")
     out = []
-    for name, ref in tree_paths(tree_like):
+    for i, (name, ref) in enumerate(named):
         if name not in leaves:
             raise ValueError(f"{name}: not in the checkpoint at {cd}")
         meta = leaves[name]
@@ -177,5 +180,13 @@ def restore(tree_like, directory, step: int | None = None,
         if tuple(t.shape) != tuple(ref.shape):
             raise ValueError(f"{name}: shape {tuple(t.shape)} in the "
                              f"checkpoint, {tuple(ref.shape)} expected")
-        out.append(t.to(ref.device))
+        dev = ref.device
+        if specs is not None:
+            s = specs[i]
+            if tuple(s.shape) != tuple(t.shape):
+                raise ValueError(f"{name}: sharding of shape {s.shape}, "
+                                 f"leaf {tuple(t.shape)}")
+            s.shard_shape()      # raises if the spec does not split the leaf
+            dev = s.mesh.device()
+        out.append(t.to(dev))
     return tree_unflatten(tree_like, out), step

@@ -57,13 +57,14 @@ def _next_pow2(x: int) -> int:
 
 
 def resolve_device(device: str) -> torch.device:
-    """The engine's device; raises rather than falling back to the CPU."""
+    """The engine's device; raises rather than falling back to the CPU.
+    ``meta`` holds shapes with no memory, for the dry run's plan."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} requested but no CUDA device "
                            "is available (pass device='cpu' to run the plain "
                            "PyTorch versions on the CPU)")
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
 

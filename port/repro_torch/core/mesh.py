@@ -11,7 +11,8 @@ stream-ordered device-to-device copies (``core.distributed``).
 A device may appear more than once.  A mesh of ``cpu`` repeated, or of
 one card repeated, stands in for the reference's forced host devices
 (``--xla_force_host_platform_device_count``): the same program runs, one
-shard row a mesh position, on fewer physical devices.
+shard row a mesh position, on fewer physical devices.  A mesh of ``meta``
+holds the layout of a plan that allocates nothing (``launch/dryrun``).
 
 ``repro.core.jaxcompat`` has no counterpart: it papers over JAX releases
 that moved ``make_mesh``, ``shard_map`` and ``set_mesh``.  PyTorch has no
@@ -58,12 +59,31 @@ class Mesh:
                              f"{math.prod(self.shape)} devices, got "
                              f"{len(devs)}")
         for d in devs:
-            if d.type not in ("cpu", "cuda"):
+            if d.type not in ("cpu", "cuda", "meta"):
                 raise ValueError(f"unsupported mesh device {d}")
 
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    @property
+    def axis_sizes(self) -> dict:
+        """{axis name: size}, what the reference reads as ``mesh.shape``."""
+        return dict(zip(self.axis_names, self.shape))
+
+    def device(self) -> torch.device:
+        """The one device every position is.  A mesh of distinct devices
+        raises ``NotImplementedError``: a model's tensors would have to be
+        split across them, which the port does not do yet (ROADMAP,
+        multi-card model execution)."""
+        distinct = set(self.devices)
+        if len(distinct) > 1:
+            raise NotImplementedError(
+                f"a mesh of {len(distinct)} distinct devices needs each "
+                "tensor split across them, which the port does not do yet "
+                "(ROADMAP, multi-card model execution); repeat one device "
+                "instead")
+        return self.devices[0]
 
 
 def make_mesh(shape, axis_names, devices=None) -> Mesh:

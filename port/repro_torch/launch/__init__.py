@@ -1,2 +1,2 @@
-"""repro_torch.launch — launchers (the port of ``repro.launch``; this
-slice ports ``serve``)."""
+"""repro_torch.launch — launchers, step functions, layouts and the dry run
+(the port of ``repro.launch``; see README.md)."""

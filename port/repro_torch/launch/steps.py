@@ -3,11 +3,11 @@ microbatching) and serve_step (one-token decode over caches); the port of
 ``repro.launch.steps``.
 
 The steps run eagerly: there is no ``jit`` to build them for, and the
-gradients come from autograd over the model's forward.  The reference's
-``opt_state_specs`` and its ``rules``/``mesh`` arguments place the state
-on a device mesh through ``launch/sharding``, which the port does not have
-yet (ROADMAP Queue 1, item 7e): ``opt_state_specs`` is left out, and a
-``rules`` or ``mesh`` other than None raises ``NotImplementedError``.
+gradients come from autograd over the model's forward.  With ``rules``
+the step runs under ``rules_ctx(rules, mesh)``, so that the model's
+sharding hooks resolve and check every layout (``launch/sharding``); a
+mesh of distinct devices raises ``NotImplementedError`` when the step is
+built.
 """
 
 from __future__ import annotations
@@ -17,14 +17,18 @@ import dataclasses
 import torch
 
 from repro_torch.core.engine import resolve_device
-from repro_torch.models import Model, decode_step, init_params, loss_fn
+from repro_torch.models import (Model, decode_step, init_params, loss_fn,
+                                param_shapes)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import tree_leaves, tree_unflatten
 from repro_torch.models.model import REMATS
-from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+from repro_torch.optim import (AdamWConfig, adamw_init, adamw_state_shapes,
+                               adamw_update)
+
+from .sharding import ShardingRules, param_sharding, rules_ctx
 
 __all__ = ["TrainConfig", "build_train_step", "build_serve_step",
-           "init_train_state"]
+           "init_train_state", "opt_state_specs"]
 
 _ACC = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -39,11 +43,13 @@ class TrainConfig:
     optim: AdamWConfig = AdamWConfig()
 
 
-def _no_mesh(rules, mesh) -> None:
-    if rules is not None or mesh is not None:
-        raise NotImplementedError(
-            "sharding rules and meshes wait for the port of launch/sharding "
-            "(ROADMAP Queue 1, item 7e); pass rules=None, mesh=None")
+def opt_state_specs(cfg: ModelConfig, mesh, rules: ShardingRules,
+                    tcfg: TrainConfig):
+    """The AdamW state's :class:`Sharded` stand-ins: each moment and master
+    leaf takes its parameter's resolved spec, ``step`` (no axes) is
+    replicated."""
+    return param_sharding(mesh, rules,
+                          adamw_state_shapes(param_shapes(cfg), tcfg.optim))
 
 
 def build_train_step(cfg: ModelConfig, tcfg: TrainConfig,
@@ -54,7 +60,8 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     mb > 1 the batch is cut into mb chunks along its first axis, the
     gradients summed in ``grad_accum_dtype``, then loss and gradients
     divided by mb."""
-    _no_mesh(rules, mesh)
+    if mesh is not None:
+        mesh.device()                # a mesh of distinct devices raises
     if tcfg.remat not in REMATS:
         raise ValueError(tcfg.remat)
 
@@ -67,6 +74,10 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         return loss.detach(), list(grads)
 
     def train_step(params: Model, opt_state, batch):
+        with rules_ctx(rules, mesh):
+            return step(params, opt_state, batch)
+
+    def step(params: Model, opt_state, batch):
         params.trainable()
         tree = params.tree()
         if tcfg.microbatch > 1:
@@ -97,10 +108,11 @@ def build_serve_step(cfg: ModelConfig, rules=None, mesh=None,
                      unroll: bool = False):
     """serve_step(params, caches, batch) -> (logits, caches): one new token
     against a pre-filled KV/state cache, the caches written in place."""
-    _no_mesh(rules, mesh)
+    if mesh is not None:
+        mesh.device()                # a mesh of distinct devices raises
 
     def serve_step(params, caches, batch):
-        with torch.inference_mode():
+        with rules_ctx(rules, mesh), torch.inference_mode():
             return decode_step(
                 params, cfg, caches,
                 tokens=batch.get("tokens"), embeds=batch.get("embeds"),

@@ -301,6 +301,8 @@ def cross_attention(x, kv_src, p, cfg):
     I = kv_src.shape[1]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = (x @ p["wq"]).reshape(B, S, H, hd)
+    # bf16 embeddings into f32 weights promote, as ``jnp.matmul`` does
+    kv_src = kv_src.to(torch.promote_types(kv_src.dtype, p["wk"].dtype))
     k = (kv_src @ p["wk"]).reshape(B, I, KV, hd)
     v = (kv_src @ p["wv"]).reshape(B, I, KV, hd)
     mask = torch.zeros((S, I), dtype=torch.float32, device=x.device)

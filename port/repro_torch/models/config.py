@@ -6,8 +6,7 @@ with stacked ``(L, ...)`` params; heterogeneous stacks (xLSTM's mLSTM/sLSTM
 mix, llama-vision's interleaved cross-attn) are patterns with several stages
 per unit.  The configuration is pure data, the fields of the reference's
 ``repro.models.config``; ``param_count`` walks this package's own shape
-tree.  The reference's ``scaled`` comes with its caller, the roofline
-launcher.
+tree.
 """
 
 from __future__ import annotations
@@ -101,6 +100,10 @@ class ModelConfig:
         if "hybrid" in blocks:
             return True
         return self.window is not None
+
+    def scaled(self, n_units: int) -> "ModelConfig":
+        """Depth-scaled copy (the roofline's depth-delta method)."""
+        return dataclasses.replace(self, n_units=n_units)
 
     def param_count(self) -> int:
         """Analytic parameter count (for MODEL_FLOPS = 6*N*D)."""

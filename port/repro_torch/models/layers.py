@@ -2,9 +2,9 @@
 
 Every parameter is described by a :class:`Spec`: its shape, dtype and
 *logical* axis names (a tuple parallel to the shape), as in the reference's
-``repro.models.layers``.  The axes are kept for the launcher's sharding
-rules (``launch/sharding``, a later slice of the port); on one card with no
-mesh, :func:`shard` is the identity.
+``repro.models.layers``.  The launcher's sharding rules
+(``launch/sharding``) map the axes to a mesh; :func:`shard` resolves and
+checks an activation's layout under them.
 
 Numerics follow the reference operation by operation: norms compute in f32
 with an f32 scale and cast back, rotary embeddings rotate split halves in
@@ -20,6 +20,8 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.launch.sharding import constraint
 
 __all__ = ["Spec", "tree_leaves", "tree_paths", "tree_map", "tree_unflatten",
            "rms_norm", "layer_norm", "apply_norm", "rope", "glu_mlp",
@@ -73,11 +75,9 @@ def tree_unflatten(tree, leaves) -> dict:
 
 
 def shard(x: torch.Tensor, axes: tuple) -> torch.Tensor:
-    """Logical sharding constraint on activations.  The identity: the port
-    runs on one card with no mesh; the launcher's sharding slice
-    (``launch/sharding``) gives the axes their meaning."""
-    del axes
-    return x
+    """Logical sharding constraint on activations, resolved by the
+    launcher's ``rules_ctx`` (``x`` itself without rules)."""
+    return constraint(x, axes)
 
 
 # ---------------------------------------------------------------------- norms
@@ -112,12 +112,15 @@ def norm_shapes(cfg, dtype):
 
 @functools.lru_cache(maxsize=32)
 def _rope_freqs(theta: float, rd: int, device: torch.device) -> torch.Tensor:
-    """The reference's numpy-f32 frequencies, copied to ``device`` once."""
+    """The reference's numpy-f32 frequencies, copied to ``device`` once
+    (on ``meta``, a stand-in of their shape)."""
     half = rd // 2
     freqs = 1.0 / (theta ** (np.arange(0, half, dtype=np.float32) * 2.0 / rd))
     t = torch.from_numpy(np.ascontiguousarray(freqs, np.float32))
     if device.type == "cuda":
         t = t.pin_memory().to(device, non_blocking=True)
+    elif device.type == "meta":
+        t = t.to(device)
     return t
 
 

@@ -33,10 +33,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.core.engine import resolve_device
+from repro_torch.launch.sharding import param_constraint
 
 from .blocks import BLOCKS
 from .config import ModelConfig
-from .layers import Spec, apply_norm, cross_entropy, norm_shapes, shard
+from .layers import (Spec, apply_norm, cross_entropy, norm_shapes, shard,
+                     tree_map)
 
 __all__ = ["param_shapes", "init_params", "forward", "loss_fn",
            "decode_step", "init_caches", "execution_runs", "Model",
@@ -151,8 +153,15 @@ class Layer(nn.Module):
     def rows(self) -> dict:
         return _index(self.stage, self.index) if self.trainable else self.p
 
-    def forward(self, x, cfg, aux):
-        return BLOCKS[self.block].forward(x, self.rows(), cfg, aux)
+    def forward(self, x, cfg, aux, specs=None):
+        """The block's forward; with ``specs`` (the stage's stacked
+        ``Spec`` tree) each leaf of the row first passes through
+        ``param_constraint`` on its per-layer axes."""
+        p = self.rows()
+        if specs is not None:
+            p = tree_map(lambda a, s: param_constraint(a, s.axes[1:]), p,
+                         specs)
+        return BLOCKS[self.block].forward(x, p, cfg, aux)
 
     def decode(self, x, cfg, caches: "Caches", aux):
         """Decode one token through this layer, writing its row of the
@@ -302,11 +311,12 @@ def _checkpointed(fn, remat: str):
     return run
 
 
-def _run_layers(layers, x, cfg, aux, remat):
+def _run_layers(layers, x, cfg, aux, remat, specs=None):
     """``x`` through ``layers`` (one run of the stack); returns x and the
-    sum of their auxiliary losses."""
+    sum of their auxiliary losses.  ``specs``: the run's stage ``Spec``
+    tree, for ``scan_param_fsdp``."""
     def one(x, layer):
-        y, a = layer(x, cfg, aux)
+        y, a = layer(x, cfg, aux, specs)
         return shard(y, ("batch", "seq", "embed")), a
 
     def seq(x, group):
@@ -340,19 +350,21 @@ def forward(params: Model, cfg: ModelConfig, tokens=None, embeds=None,
     embeds (B,S,D).  last_only: project only the final position (serving
     prefill — avoids the (B,S,V) logits tensor).  ``remat`` chooses the
     activation checkpointing of a backward (see REMATS; it changes no
-    value).  ``unroll`` and ``scan_param_fsdp`` choose how the reference
-    builds its program (loop form, parameter sharding); without a mesh or a
-    compiler neither changes anything here, and they are accepted for the
-    reference's signature."""
-    del unroll, scan_param_fsdp
+    value).  ``unroll`` is the reference's loop form (the layers run
+    unrolled here); it changes nothing.  ``scan_param_fsdp`` passes each
+    layer's leaves through ``param_constraint`` (``launch/sharding``), as
+    the reference pins them inside its layer scan."""
+    del unroll
     if remat not in REMATS:
         raise ValueError(remat)
     aux = aux or {}
     x = shard(_embed(params, cfg, tokens, embeds), ("batch", "seq", "embed"))
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = list(params.blocks)
+    stages = param_shapes(cfg)["stages"] if scan_param_fsdp else None
     for key, off, cnt, _ in execution_runs(cfg):
-        x, a = _run_layers(layers[:cnt], x, cfg, aux, remat)
+        x, a = _run_layers(layers[:cnt], x, cfg, aux, remat,
+                           stages[key] if stages else None)
         layers = layers[cnt:]
         aux_total = aux_total + a
     if last_only:

@@ -60,7 +60,11 @@ def test_importing_every_module_loads_no_jax_or_repro():
             "repro_torch.configs", "repro_torch.configs.base",
             "repro_torch.configs.qwen2_0_5b", "repro_torch.launch",
             "repro_torch.launch.serve", "repro_torch.launch.steps",
-            "repro_torch.launch.train", "repro_torch.optim",
+            "repro_torch.launch.train", "repro_torch.launch.mesh",
+            "repro_torch.launch.sharding", "repro_torch.launch.inputs",
+            "repro_torch.launch.elastic", "repro_torch.launch.plan",
+            "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+            "repro_torch.optim",
             "repro_torch.optim.adamw", "repro_torch.optim.schedule",
             "repro_torch.optim.grad_compress", "repro_torch.data",
             "repro_torch.data.pipeline", "repro_torch.checkpoint",

@@ -26,7 +26,7 @@ and in the first dispatch after a structure change, which restacks and
 uploads the device state.  The store tests drive whole stores — file- and
 level-granularity, and the sharded store — on the card and on the CPU.
 The mesh tests run the mesh GET on cuda:0 four times against the CPU four
-times, and (with two cards or more) on two distinct cards while cuda:0 is
+times (and the dry run's store cell on a (2, 2) mesh of cuda:0), and (with two cards or more) on two distinct cards while cuda:0 is
 current, so that each kernel must launch on its own tensors' card; the
 last checks that ``mesh="auto"`` starts its mesh at the engine's card.
 The serving cases run the LM serving engine on the card against the CPU
@@ -1225,3 +1225,24 @@ def _to_card(tree):
         return {k: _to_card(v) for k, v in tree.items()}
     return tree.cuda()
 
+
+
+@pytest.mark.gpu
+def test_store_cell_on_the_card():
+    """The dry run's store cell at 2^16 keys over a (2, 2) mesh of cuda:0:
+    every answer of its GETs right (the cell raises on a wrong one), and
+    each of its two kernels launched once a mesh position a GET."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from repro_torch.launch.dryrun import STORE_GETS, run_store_cell
+
+    r = run_store_cell(devices=["cuda:0"] * 4, n_keys=1 << 16,
+                       probe_batch=1 << 12)
+    m = r["measured"]
+    assert r["mesh"] == "2x2"
+    assert m["answers_checked"] == STORE_GETS * (1 << 12)
+    assert m["launches_per_get"]["plr_lookup"] == 4
+    assert m["launches_per_get"]["bounded_search"] == 4
+    assert m["launches_per_get"]["bloom_probe_stack"] == 0
+    assert m["peak_device_bytes"] > 0
+    assert m["device"] == torch.cuda.get_device_name(0)
