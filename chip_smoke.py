@@ -81,10 +81,10 @@
         have launched; then they are held against their plain versions on
         every level of the session index, on the id batches H looked up.
      I  the served MoE/MLA model over H's session index: H's model is
-        freed, and deepseek-v2-lite-16b at full width and full depth (27
-        layers: MLA attention over its compressed cache, one dense MLP
-        layer, 26 MoE layers of 64 experts, top-6, 2 shared; 15.7B
-        parameters) in bf16 serves I_REQUESTS (256) requests like H's
+        freed, and deepseek-v2-lite-16b at full width and cut depth (7 of
+        27 layers, I_SERVE_UNITS: MLA attention over its compressed
+        cache, the dense MLP layer, 6 of the 26 MoE layers of 64 experts,
+        top-6, 2 shared) in bf16 serves I_REQUESTS (256) requests like H's
         through ``ServingEngine`` with H's engine config, registering H's
         remaining background batches, every lookup and request checked as
         in H, 8 engine steps profiled, and the MoE assignments dropped at
@@ -100,9 +100,9 @@
         bf16 against f32, the share of positions whose top-k routing
         differs (a reading, no bound).
      J  the served recurrent model over the same index: I's model is
-        freed, and hymba-1.5b at full width and full depth (32 ``hybrid``
-        layers: sliding-window GQA attention and Mamba heads in parallel,
-        1.5B parameters) in bf16 serves J_REQUESTS (256) requests like
+        freed, and hymba-1.5b at full width and cut depth (8 of 32
+        ``hybrid`` layers, J_SERVE_UNITS: sliding-window GQA attention and
+        Mamba heads in parallel) in bf16 serves J_REQUESTS (256) requests like
         I's, registering the background batches I left, every lookup and
         request checked, 8 engine steps profiled; its cache bytes split
         into the attention ring and the Mamba state.  Counts are zeroed
@@ -164,6 +164,27 @@
         ``roofline.report`` over them.  L3: two train steps of qwen2-0.5b at full width under
         ``DEFAULT_RULES`` on a (1, 1) mesh of the card, bit for bit the
         same steps with ``rules=None``.
+     M  the sharded serve step (``launch/spmd``, ``launch/steps``):
+        command-r-plus-104b at full width on a (data 2, model 2) mesh of
+        four processes under ``DEFAULT_RULES``, every parameter, cache and
+        input a DTensor (one card a rank over NCCL with four cards, else
+        all four on cuda:0 over gloo, the collectives staged through host
+        memory; the backend and the number of cards are printed).  M1 in
+        bf16, 4 of its 64 units (the one cut); M2 in f32, one unit.  Each:
+        a prefill of 8 prompts of 128 tokens, then 8 decode steps at 8
+        rows on from caches of 1024 whose first 508 slots are written
+        (drawn from ``--seed``), so that the steps write slots 508-515,
+        both pieces of the context split over "model"; the tokens fed
+        drawn from ``--seed``;
+        then the same unsharded in this process once the four have
+        exited.  Each step's largest logit gap over the unsharded logits'
+        largest magnitude must stay within M_TOL; each rank's parameter
+        bytes must equal the dry-run plan's (``plan_cell``, the same
+        config and cell on a (2, 2) mesh of ``meta``).  Its lines have
+        the wall ms a step of both runs, the collectives by kind
+        (CommDebugMode) and the plan's, and each rank's peak device
+        bytes.  Counts are zeroed just before M and read just after
+        (``launches_m``; the model path runs none of the five kernels).
    After the timed batches of C, D, E and G, 4 of the phase's batches
    replay through its dispatch half (``BourbonStore.dispatch_get`` in C,
    ``ShardedStore.dispatch_get`` in D and G, and in E shard 0's
@@ -2067,6 +2088,11 @@ def drive_lm(device: str, seed: int, card: str, n_sessions: int = H_SESSIONS,
 
 I_ARCH = "deepseek-v2-lite-16b"   # MLA + MoE; fits one card at full depth
 I_REQUESTS = 256
+# phase I's depth: the dense prologue and 6 of the 26 MoE layers, and
+# phase J's: 8 of hymba's 32 layers (cut so that the whole script stays
+# inside its 1200 s on a slow host: at full depth their serving took
+# 202 and 226 s of a 1266 s run on an H100 machine whose host ran slow)
+I_SERVE_UNITS, J_SERVE_UNITS = 6, 8
 # I2's cut depths: deepseek 3 layers (the dense prologue and two MoE
 # layers), mixtral 1, llama-3.2-vision 5 (four self- and one
 # cross-attention layer)
@@ -3187,6 +3213,268 @@ def session_shape_checks(store, sets: list) -> dict:
     return out
 
 
+M_ARCH = "command-r-plus-104b"   # 208 GB in bf16 at full depth
+M_MESH, M_AXES = (2, 2), ("data", "model")
+M_PROCS = 4
+M_B, M_S, M_T, M_STEPS = 8, 128, 1024, 8
+# the decode goes on from caches whose first M_POS slots are written (from
+# the seed), so that its steps write both pieces of the context split over
+# "model" (slots 508-511 and 512-515) and attend to keys in both
+M_POS = M_T // 2 - M_STEPS // 2
+# (dtype, pattern units of 64): M1 at full width, cut depth, bf16; M2 at
+# full width, one unit, f32
+M_RUNS = {"M1": ("bfloat16", 4), "M2": ("float32", 1)}
+# the largest logit gap, sharded against unsharded, over the unsharded
+# logits' largest magnitude; see PERF.md and port/scripts/shard_tol_control.py
+M_TOL = {"M1": 2.0 ** -5, "M2": 2.0 ** -15}
+
+
+def m_config(dtype: str, units: int):
+    """M_ARCH at full width, ``units`` pattern units, in ``dtype``."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(M_ARCH), n_units=units,
+                               dtype=dtype)
+
+
+def m_tokens(cfg, seed: int) -> tuple:
+    """The prompts (M_B, M_S) and the token each decode step is fed (the
+    same on both runs, drawn from ``seed``: teacher-forced, so that no
+    near-tie of one run's argmax changes the other's input)."""
+    rng = np.random.default_rng(seed + 70)
+    return (rng.integers(0, cfg.vocab, (M_B, M_S)).astype(np.int32),
+            rng.integers(0, cfg.vocab, (M_STEPS, M_B, 1)).astype(np.int32))
+
+
+def m_caches(cfg, device, seed: int):
+    """``init_caches(cfg, M_B, M_T)`` on ``device`` with the first M_POS
+    slots of every k and v N(0, 1), drawn on the device from ``seed`` (the
+    same on every process), and every ``pos`` at M_POS."""
+    import torch
+    from repro_torch.models import init_caches
+
+    caches = init_caches(cfg, M_B, M_T, device=str(device))
+    gen = torch.Generator(device=device).manual_seed(seed + 71)
+    for key in sorted(caches):
+        for name, t in sorted(caches[key].items()):
+            if name == "pos":
+                t.fill_(M_POS)
+            else:
+                head = t[:, :, :M_POS]
+                head.copy_(torch.randn(head.shape, generator=gen,
+                                       device=device, dtype=torch.float32))
+    return caches
+
+
+def _m_timed(fn, barrier=None) -> tuple:
+    import torch
+    if barrier is not None:
+        barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _comm_kinds(counts: dict) -> dict:
+    """CommDebugMode's counts by collective name (``all_reduce``...)."""
+    return {str(k).split(".")[-1]: int(v) for k, v in counts.items()}
+
+
+def m_rank(rank: int, device, dtype: str, units: int, seed: int) -> dict:
+    """One rank of phase M: ``m_config``'s model laid out over the
+    process mesh under DEFAULT_RULES, drawn leaf by leaf with
+    ``init_leaves`` on a generator seeded ``seed`` (the unsharded run's
+    draws); the prefill of M_B x M_S prompts, then M_STEPS decode steps
+    on from ``m_caches``, each timed; then one more prefill and decode
+    step under CommDebugMode for the collectives by kind.  Rank 0 returns
+    the global logits (float32 numpy)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.convert import shard_params
+    from repro_torch.kernels import ops
+    from repro_torch.launch.inputs import shard_batch, shard_caches
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.launch.sharding import DEFAULT_RULES, ShardingRules
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.models import init_leaves
+
+    cfg = m_config(dtype, units)
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launches()
+    mesh = make_process_mesh(M_MESH, M_AXES, device)
+    rules = ShardingRules(DEFAULT_RULES)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = shard_params(init_leaves(cfg, gen, device), mesh, rules, cfg)
+    init_s = time.perf_counter() - t0
+    caches = shard_caches(cfg, M_B, M_T, mesh, rules,
+                          whole=m_caches(cfg, device, seed))
+    prompts, fed = m_tokens(cfg, seed)
+    init_peak = torch.cuda.max_memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    prefill = build_prefill_step(cfg, rules, mesh)
+    serve = build_serve_step(cfg, rules, mesh)
+
+    def batch(t):
+        return shard_batch({"tokens": torch.from_numpy(t).to(device)}, mesh)
+
+    logits, ms = [], []
+    out, t = _m_timed(lambda: prefill(params, batch(prompts)), dist.barrier)
+    logits.append(out.full_tensor())
+    ms.append(t)
+    for tok in fed:
+        (out, caches), t = _m_timed(
+            lambda: serve(params, caches, batch(tok)), dist.barrier)
+        logits.append(out.full_tensor())
+        ms.append(t)
+    with CommDebugMode() as c_pre:
+        prefill(params, batch(prompts))
+    with CommDebugMode() as c_dec:
+        serve(params, caches, batch(fed[-1]))
+    local = [t.to_local() for t in params.parameters()]
+    rec = {"rank": rank, "coordinate": list(mesh.coordinate),
+           "device": str(device),
+           "param_bytes": sum(t.numel() * t.element_size() for t in local),
+           "init_s": init_s, "prefill_ms": ms[0], "decode_ms": ms[1:],
+           "collectives": {"prefill": _comm_kinds(c_pre.get_comm_counts()),
+                           "decode_step": _comm_kinds(
+                               c_dec.get_comm_counts())},
+           "init_peak_device_bytes": init_peak,
+           "serving_peak_device_bytes": torch.cuda.max_memory_allocated(
+               device),
+           "launches": dict(ops.launches)}
+    if rank == 0:
+        rec["logits"] = [x.float().cpu().numpy() for x in logits]
+    return rec
+
+
+def m_unsharded(dtype: str, units: int, seed: int) -> dict:
+    """Phase M's run on one process on cuda:0: ``init_params`` from the
+    same draw, no rules, the same caches, prompts and fed tokens, each
+    step timed."""
+    import torch
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.models import init_params
+
+    cfg = m_config(dtype, units)
+    dev = torch.device("cuda", 0)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                         str(dev))
+    caches = m_caches(cfg, dev, seed)
+    prompts, fed = m_tokens(cfg, seed)
+    prefill, serve = build_prefill_step(cfg), build_serve_step(cfg)
+    out, t = _m_timed(lambda: prefill(params, {
+        "tokens": torch.from_numpy(prompts).to(dev)}))
+    logits, ms = [out.float().cpu().numpy()], [t]
+    for tok in fed:
+        (out, caches), t = _m_timed(lambda: serve(params, caches, {
+            "tokens": torch.from_numpy(tok).to(dev)}))
+        logits.append(out.float().cpu().numpy())
+        ms.append(t)
+    rec = {"logits": logits, "prefill_ms": ms[0], "decode_ms": ms[1:],
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in params.parameters())}
+    del params, caches
+    return rec
+
+
+def m_readings(tag: str, seed: int, layout: tuple) -> dict:
+    """One run of phase M (``tag`` in M_RUNS): the four ranks, then the
+    unsharded run once they have exited; the gap of each step's logits
+    over the unsharded logits' largest magnitude, both runs' times, the
+    ranks' parameter bytes beside the plan's (``launch/dryrun.plan_cell``
+    on a (2, 2) mesh of ``meta`` positions, same config and cell) and
+    their peak device bytes."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.launch import dryrun, spmd
+
+    dtype, units = M_RUNS[tag]
+    backend, devices = layout
+    t0 = time.perf_counter()
+    ranks = spmd.run(m_rank, devices, backend, (dtype, units, seed))
+    sharded_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = m_unsharded(dtype, units, seed)
+    unsharded_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()         # the next run's ranks share the card
+    plan = dryrun.plan_cell(
+        m_config(dtype, units), ShapeSpec("m_decode", M_T, M_B, "decode"),
+        make_mesh(M_MESH, M_AXES, ["meta"] * M_PROCS))
+    got, want = ranks[0]["logits"], one["logits"]
+    gaps = []
+    for g, w in zip(got, want):
+        if g.shape != w.shape or not np.isfinite(g).all():
+            fail(f"phase {tag}: sharded logits {g.shape}, finite "
+                 f"{bool(np.isfinite(g).all())}; unsharded {w.shape}")
+        gaps.append(float(np.abs(g - w).max() / np.abs(w).max()))
+    return {
+        "arch": M_ARCH, "dtype": dtype, "units": units,
+        "mesh": dict(zip(M_AXES, M_MESH)), "backend": backend,
+        "devices": [str(d) for d in devices],
+        "batch": M_B, "prompt": M_S, "cache": M_T, "decode_from": M_POS,
+        "decode_steps": len(got) - 1,
+        "gap_prefill": gaps[0], "gap_decode": gaps[1:], "gap_max": max(gaps),
+        "logit_scale": float(max(np.abs(w).max() for w in want)),
+        "param_bytes_per_rank": [r["param_bytes"] for r in ranks],
+        "plan_argument_bytes": plan["memory"]["argument_bytes"],
+        "plan_argument_parts": plan["argument_parts"],
+        "plan_collectives": plan["collectives"],
+        "plan_collective_counts": plan.get("collective_counts"),
+        "init_peak_device_bytes_per_rank": [r["init_peak_device_bytes"]
+                                            for r in ranks],
+        "serving_peak_device_bytes_per_rank": [
+            r["serving_peak_device_bytes"] for r in ranks],
+        "init_s_per_rank": [r["init_s"] for r in ranks],
+        "sharded_prefill_ms": ranks[0]["prefill_ms"],
+        "sharded_decode_ms": ranks[0]["decode_ms"],
+        "unsharded_prefill_ms": one["prefill_ms"],
+        "unsharded_decode_ms": one["decode_ms"],
+        "collectives": ranks[0]["collectives"],
+        "unsharded_param_bytes": one["param_bytes"],
+        "unsharded_peak_device_bytes": one["peak_device_bytes"],
+        "launches": {k: sum(r["launches"].get(k, 0) for r in ranks)
+                     for k in ranks[0]["launches"]},
+        "sharded_s": sharded_s, "unsharded_s": unsharded_s}
+
+
+def drive_sharded_serve(seed: int, card: str) -> dict:
+    """Phase M: M1 and M2 (M_RUNS) on ``spmd.card_layout(M_PROCS)``, each
+    held to its bound (M_TOL) and its ranks' parameter bytes to the
+    plan's."""
+    import torch
+    from repro_torch.launch import spmd
+
+    layout = spmd.card_layout(M_PROCS)
+    n_cards = torch.cuda.device_count()
+    print(f"phase M: {M_PROCS} processes, backend {layout[0]}, "
+          f"{n_cards} cards, devices {[str(d) for d in layout[1]]}")
+    out = {"backend": layout[0], "cards": n_cards, "launches": {}}
+    for tag in M_RUNS:
+        t0 = time.perf_counter()
+        r = m_readings(tag, seed, layout)
+        r["s"] = time.perf_counter() - t0
+        r["tol"] = M_TOL[tag]
+        print(json.dumps({"phase": tag, **r, "card": card}))
+        if r["gap_max"] > M_TOL[tag]:
+            fail(f"phase {tag}: sharded logits off the unsharded by "
+                 f"{r['gap_max']:.3g} of their scale, over {M_TOL[tag]:.3g}")
+        want = r["plan_argument_parts"]["params"]
+        if any(b != want for b in r["param_bytes_per_rank"]):
+            fail(f"phase {tag}: ranks hold {r['param_bytes_per_rank']} "
+                 f"parameter bytes, the plan {want} a position")
+        out[tag] = {k: r[k] for k in ("gap_max", "s", "param_bytes_per_rank")}
+        for k, n in r["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + n
+    return out
+
+
 KERNELS = ("plr_lookup", "bounded_search", "bloom_probe", "sstable_search",
            "bloom_probe_stack")
 GROUP_MACROS = {"bounded_search": "BOUNDED_SEARCH_GROUP",
@@ -3978,7 +4266,7 @@ def main() -> int:
             k["session_shape"] = session_shapes[k["name"]]
     gc.collect()
     torch.cuda.empty_cache()
-    i_cfg = get_config(I_ARCH)
+    i_cfg = dataclasses.replace(get_config(I_ARCH), n_units=I_SERVE_UNITS)
     drops = DropCount(i_cfg.top_k)
     rec_i, launches_i, i_sets = drive_model(sessions, left, args.seed, card,
                                             "cuda", i_cfg, watch=drops.on)
@@ -3997,9 +4285,10 @@ def main() -> int:
     del rec_i, drops
     gc.collect()
     torch.cuda.empty_cache()
-    rec_j, launches_j, j_sets = drive_model(sessions, left, args.seed, card,
-                                            "cuda", get_config(J_ARCH),
-                                            n_requests=J_REQUESTS, tag="J")
+    rec_j, launches_j, j_sets = drive_model(
+        sessions, left, args.seed, card, "cuda",
+        dataclasses.replace(get_config(J_ARCH), n_units=J_SERVE_UNITS),
+        n_requests=J_REQUESTS, tag="J")
     print(json.dumps(rec_j))
     for name in KERNELS[:4]:
         if launches_j[name] <= 0:
@@ -4060,6 +4349,18 @@ def main() -> int:
     rec_l3 = drive_rules_steps(args.seed)
     print(json.dumps({"phase": "L3", **rec_l3, "launches": dict(ops.launches),
                       "s": time.perf_counter() - t0, "card": card}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launches()                 # phase M: the sharded serve step
+    t0 = time.perf_counter()
+    rec_m = drive_sharded_serve(args.seed, card)
+    print(json.dumps({"phase": "M", "backend": rec_m["backend"],
+                      "cards": rec_m["cards"], "M1": rec_m["M1"],
+                      "M2": rec_m["M2"], "s": time.perf_counter() - t0,
+                      "card": card}))
+    for k in checks:
+        k["launches_m"] = ops.launches[k["name"]] + \
+            rec_m["launches"].get(k["name"], 0)
     for k in checks:
         other = {tag: k[tag]["mismatches"]
                  for tag in ("wide_check", "shard_shape", "level_model_shape",

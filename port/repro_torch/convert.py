@@ -21,6 +21,9 @@ it).  The ``state`` dict holds::
 Level models and filters are carried as current for the carried level
 versions, with their epochs, so the converted store neither relearns nor
 rebuilds them.
+
+``shard_params(params, mesh, rules)`` lays a model's parameters out over
+a process mesh, each leaf a ``DTensor`` by its ``param_sharding`` spec.
 """
 
 from __future__ import annotations
@@ -34,10 +37,14 @@ from repro_torch.core.lsm import N_LEVELS
 from repro_torch.core.plr import PLRModel
 from repro_torch.core.sstable import SSTable, advance_file_ids
 from repro_torch.core.store import BourbonStore, StoreConfig
+from repro_torch.launch.sharding import (distribute, local_shard,
+                                         param_sharding, require_blocks)
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import tree_paths, tree_unflatten
 from repro_torch.models.model import Model, param_shapes
 
-__all__ = ["store_from_numpy", "params_from_numpy", "opt_state_from_numpy"]
+__all__ = ["store_from_numpy", "params_from_numpy", "opt_state_from_numpy",
+           "shard_params"]
 
 
 def _model(m: dict | None, delta: int) -> PLRModel | None:
@@ -160,3 +167,50 @@ def opt_state_from_numpy(state: dict, cfg: ModelConfig,
         if k in state:
             out[k] = _walk(specs, state[k], leaf, (k,))
     return out
+
+
+def shard_params(params, mesh, rules, cfg: ModelConfig | None = None) -> Model:
+    """The port's model with every parameter a ``DTensor`` on the process
+    ``mesh``, laid out by its ``param_sharding`` spec under ``rules``.
+
+    ``params`` is a :class:`Model` (``params_from_numpy`` from the
+    reference's numpy tree, or ``init_params``), or ``models.init_leaves``'
+    (name, tensor) pairs with ``cfg``: every rank makes the same whole
+    leaves, keeps its own piece of each and drops the rest before the next
+    leaf.  The ranks make each leaf in turn (a barrier a leaf), so that
+    ranks that share one card never hold more than one whole leaf at
+    once.  Every block of the stack must run sharded
+    (``sharding.require_block``)."""
+    import torch.distributed as dist
+
+    if isinstance(params, Model):
+        cfg = params.cfg
+        leaves, turns = iter(tree_paths(params.tree())), False
+    elif cfg is None:
+        raise ValueError("leaves without their config")
+    else:
+        leaves, turns = iter(params), True
+    require_blocks(cfg, mesh)
+    specs = param_sharding(mesh, rules, param_shapes(cfg))
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = []
+    for name, want in tree_paths(specs):
+        piece = None
+        for r in range(world if turns else 1):
+            if not turns or r == rank:
+                got, whole = next(leaves)
+                if got != name or tuple(whole.shape) != want.shape:
+                    raise ValueError(f"leaf {got} {tuple(whole.shape)}, "
+                                     f"expected {name} {want.shape}")
+                piece = local_shard(whole, want.spec, mesh)
+                piece = piece.clone() if piece.is_contiguous() \
+                    else piece.contiguous()
+                stand_in = torch.empty(want.shape, dtype=whole.dtype,
+                                       device="meta")
+                del whole
+                if piece.is_cuda:
+                    torch.cuda.empty_cache()
+            if turns:
+                dist.barrier()
+        out.append(distribute(stand_in, want.spec, mesh, local=piece))
+    return Model(cfg, tree_unflatten(specs, out))

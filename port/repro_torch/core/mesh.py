@@ -18,6 +18,12 @@ holds the layout of a plan that allocates nothing (``launch/dryrun``).
 that moved ``make_mesh``, ``shard_map`` and ``set_mesh``.  PyTorch has no
 ambient mesh to set (every call takes its mesh explicitly) and no
 ``shard_map`` to find, so nothing here depends on the installed version.
+
+A :class:`ProcessMesh` is the other kind: one process a position, each
+with its own device, the positions being the ranks of the default process
+group (``launch/mesh.make_process_mesh``, ``launch/spmd``).  A model laid
+out over it is split: each rank holds its shard of every tensor as a
+``DTensor`` (``launch/sharding``).
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ import math
 
 import torch
 
-__all__ = ["Mesh", "make_mesh"]
+__all__ = ["Mesh", "ProcessMesh", "make_mesh"]
 
 
 def _indexed(d: torch.device) -> torch.device:
@@ -73,17 +79,54 @@ class Mesh:
 
     def device(self) -> torch.device:
         """The one device every position is.  A mesh of distinct devices
-        raises ``NotImplementedError``: a model's tensors would have to be
-        split across them, which the port does not do yet (ROADMAP,
-        multi-card model execution)."""
+        raises ``NotImplementedError``: one process never splits a model
+        across devices; a :class:`ProcessMesh` does, one process a
+        device."""
         distinct = set(self.devices)
         if len(distinct) > 1:
             raise NotImplementedError(
-                f"a mesh of {len(distinct)} distinct devices needs each "
-                "tensor split across them, which the port does not do yet "
-                "(ROADMAP, multi-card model execution); repeat one device "
-                "instead")
+                f"a mesh of {len(distinct)} distinct devices in one process: "
+                "multi-card model execution runs one process a device "
+                "(ProcessMesh, launch/spmd); repeat one device instead")
         return self.devices[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcessMesh:
+    """A mesh whose positions are the ranks of the default process group,
+    flattened in row-major order over ``shape`` as ``device_mesh`` (a
+    ``torch.distributed.device_mesh.DeviceMesh``) lays them out, one axis
+    name per dimension.  ``local`` is this process's one device."""
+    device_mesh: object
+    local: torch.device
+
+    def __post_init__(self) -> None:
+        object.__setattr__(self, "local", _indexed(torch.device(self.local)))
+        if self.local.type not in ("cpu", "cuda", "meta"):
+            raise ValueError(f"unsupported mesh device {self.local}")
+        if self.device_mesh.mesh_dim_names is None:
+            raise ValueError("a process mesh needs named axes")
+
+    @property
+    def axis_names(self) -> tuple:
+        return tuple(self.device_mesh.mesh_dim_names)
+
+    @property
+    def shape(self) -> tuple:
+        return tuple(self.device_mesh.mesh.shape)
+
+    @property
+    def axis_sizes(self) -> dict:
+        return dict(zip(self.axis_names, self.shape))
+
+    @property
+    def coordinate(self) -> tuple:
+        """This rank's position on each axis."""
+        return tuple(self.device_mesh.get_coordinate())
+
+    def device(self) -> torch.device:
+        """This process's device."""
+        return self.local
 
 
 def make_mesh(shape, axis_names, devices=None) -> Mesh:

@@ -25,7 +25,10 @@ the reference's keys; what each means here is in ``launch/README.md``:
   accessed`` (operand and result bytes an aten op) of the whole job,
   divided evenly over the positions (``cost_split``);
 - ``collectives``: the parameter and gradient traffic the specs imply
-  (``collectives_scope``).
+  (``collectives_scope``); for a decode or prefill cell of an
+  ``attn_mlp`` stack, every collective of the step run sharded on
+  ``DTensor``s at one position of a fake process group
+  (:func:`sharded_plan`), which also gives its ``temp_bytes``.
 
 The store cell (``--store``) runs: the range-partitioned state of the
 paper's workload (2^30 keys, one GET of 2^20 probes) built on the
@@ -54,23 +57,25 @@ from torch.utils.flop_counter import FlopCounterMode
 
 import repro_torch.configs.base as cbase
 import repro_torch.models.attention as att
-from repro_torch.configs.base import get_config, shape_applicable
+from repro_torch.configs.base import ShapeSpec, get_config, shape_applicable
+from repro_torch.convert import shard_params
 from repro_torch.core.distributed import (KEY_SENTINEL, DistStoreConfig,
                                           build_dist_get, dist_state_specs)
 from repro_torch.core.mesh import Mesh
 from repro_torch.kernels import ops
-from repro_torch.models import Model, forward, init_caches
+from repro_torch.models import Model, init_caches
 from repro_torch.models.model import _dtype
 
-from .inputs import _bspec, input_specs
-from .mesh import make_production_mesh
-from .plan import StepMeter, param_collectives, tree_bytes
-from .sharding import (DEFAULT_RULES, Sharded, ShardingRules, _axes_of,
-                       logical_to_spec, rules_ctx)
-from .steps import (TrainConfig, build_serve_step, build_train_step,
-                    opt_state_specs)
+from .inputs import _bspec, input_specs, shard_caches
+from .mesh import make_process_mesh, make_production_mesh
+from .plan import (ShardMeter, StepMeter, fake_process_group,
+                   param_collectives, tree_bytes)
+from .sharding import (DEFAULT_RULES, SHARDED_BLOCKS, Sharded, ShardingRules,
+                       _axes_of, distribute, logical_to_spec)
+from .steps import (TrainConfig, build_prefill_step, build_serve_step,
+                    build_train_step, opt_state_specs)
 
-__all__ = ["run_cell", "run_store_cell", "sweep", "main", "store_row",
+__all__ = ["run_cell", "plan_cell", "sharded_plan", "run_store_cell", "sweep", "main", "store_row",
            "store_keys", "store_probes", "STORE_GETS"]
 
 STORE_GETS = 3            # timed GETs of the store cell
@@ -89,6 +94,10 @@ _SEG_MIN, _GAPS = 64, 8
 # combine (1 + 8)
 _STORE_TEMP_PER_PROBE = 39
 _PORT = str(pathlib.Path(__file__).resolve().parents[2])
+# the step's arguments by kind, in ``args`` order (``argument_parts``)
+_ARG_NAMES = {"train": ("params", "optimizer", "batch"),
+              "prefill": ("params", "batch"),
+              "decode": ("params", "caches", "batch")}
 
 
 def _mesh_tag(mesh) -> str:
@@ -133,6 +142,26 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         return res
     if units is not None:
         cfg = cfg.scaled(units)
+    return plan_cell(cfg, shape, make_production_mesh(multi_pod=multi_pod,
+                                                      devices="meta"),
+                     res=res, remat=remat, microbatch=microbatch,
+                     rule_overrides=rule_overrides,
+                     flash_kv_chunk=flash_kv_chunk, metering=metering,
+                     scan_param_fsdp=scan_param_fsdp,
+                     grad_accum_dtype=grad_accum_dtype)
+
+
+def plan_cell(cfg, shape: ShapeSpec, mesh: Mesh, *, res: dict | None = None,
+              remat: str = "full", microbatch: int = 0,
+              rule_overrides: dict | None = None,
+              flash_kv_chunk: int | None = None, metering: bool = False,
+              scan_param_fsdp: bool = False,
+              grad_accum_dtype: str = "float32") -> dict:
+    """The plan of ``cfg`` at ``shape`` on ``mesh`` (of ``meta``
+    positions), added to ``res``: :func:`run_cell` after it has resolved
+    the cell's names and the production mesh."""
+    res = {"mesh": _mesh_tag(mesh), "remat": remat,
+           "microbatch": microbatch} if res is None else res
     if metering:
         # the reference's metering build unrolls its loops so that
         # cost_analysis counts every layer; the eager plan always does
@@ -140,7 +169,6 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         res["metering"] = True
 
     t0 = time.time()
-    mesh = make_production_mesh(multi_pod=multi_pod, devices="meta")
     rules = ShardingRules(DEFAULT_RULES)
     if rule_overrides:
         rules.update(rule_overrides)
@@ -181,15 +209,10 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
             return donated + _scalar_bytes(step(model, opt, batch)[2])
     elif shape.kind == "prefill":
         args, donated = specs, 0
+        step = build_prefill_step(cfg, rules, mesh, unroll=metering)
 
         def run() -> int:
-            with rules_ctx(rules, mesh), torch.inference_mode():
-                # serving prefill: logits for the last position only
-                forward(model, cfg, tokens=batch.get("tokens"),
-                        embeds=batch.get("embeds"),
-                        aux={k: v for k, v in batch.items()
-                             if k == "image_embed"},
-                        remat="none", last_only=True)
+            step(model, batch)
             return logits_bytes
     else:  # decode
         args, donated = specs, tree_bytes(specs[1])
@@ -205,9 +228,14 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     old_chunk = att.FLASH_KV_CHUNK
     if flash_kv_chunk is not None:
         att.FLASH_KV_CHUNK = flash_kv_chunk
+    sharded = None
     try:
         with StepMeter() as meter, FlopCounterMode(display=False) as fc:
             outputs = run()
+        if shape.kind != "train" and all(
+                st.block in SHARDED_BLOCKS
+                for st in cfg.prologue + cfg.pattern):
+            sharded = sharded_plan(cfg, shape, mesh, rules)
     finally:
         att.FLASH_KV_CHUNK = old_chunk
     res["compile_s"] = round(time.time() - t1, 2)
@@ -221,6 +249,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         "peak_bytes": arg_bytes + meter.peak + outputs - donated,
     }
     res["temp_scope"] = "model axis unsplit (upper bound)"
+    res["argument_parts"] = dict(zip(_ARG_NAMES[shape.kind],
+                                     (tree_bytes(a) for a in args)))
     job = GB / b_dev / mesh.size
     res["cost"] = {"flops": float(fc.get_total_flops()) * job,
                    "bytes accessed": float(meter.accessed) * job}
@@ -229,9 +259,52 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     res["collectives"] = param_collectives(pspec, batch_axes, shape.kind,
                                            microbatch)
     res["collectives_scope"] = "parameters and gradients"
+    if sharded is not None:
+        mem = res["memory"]
+        mem["temp_bytes"] = sharded["temp_bytes"]
+        mem["peak_bytes"] = arg_bytes + mem["temp_bytes"] + outputs - donated
+        res["temp_scope"] = "one position's shard (DTensor placements)"
+        res["collectives"] = sharded["collectives"]
+        res["collective_counts"] = sharded["counts"]
+        res["collectives_scope"] = "all (DTensor placements)"
     res["per_position_batch"] = b_dev
     res["n_devices"] = mesh.size
     return res
+
+
+def sharded_plan(cfg, shape: ShapeSpec, mesh: Mesh,
+                 rules: ShardingRules) -> dict:
+    """Position 0's run of the prefill or decode step of ``shape`` sharded
+    as on a process mesh of ``mesh``'s shape: a ``fake_process_group`` of
+    ``mesh.size`` ranks in this process, every parameter, cache and input
+    a ``DTensor`` of ``meta`` pieces laid out by its spec, the step run
+    once under :class:`~repro_torch.launch.plan.ShardMeter`.  Returns the
+    peak bytes of its local temporaries (``temp_bytes``) and the result
+    bytes (``collectives``) and number (``counts``) of every collective
+    DTensor issued, by kind."""
+    with fake_process_group(mesh.size):
+        pm = make_process_mesh(mesh.shape, mesh.axis_names, "meta")
+        specs = input_specs(cfg, shape, mesh, rules)
+        params = shard_params(Model(cfg, _meta_tree(specs[0])), pm, rules)
+        batch = {k: distribute(s.meta(), s.spec, pm, local=torch.empty(
+            s.shard_shape(), dtype=s.dtype, device="meta"))
+            for k, s in specs[-1].items() if k != "labels"}
+        if shape.kind == "decode":
+            caches = shard_caches(cfg, shape.global_batch, shape.seq_len, pm,
+                                  rules)
+            step = build_serve_step(cfg, rules, pm)
+
+            def run():
+                step(params, caches, batch)
+        else:
+            step = build_prefill_step(cfg, rules, pm)
+
+            def run():
+                step(params, batch)
+        with ShardMeter() as meter:
+            run()
+    return {"temp_bytes": meter.peak, "collectives": meter.collectives,
+            "counts": meter.counts}
 
 
 # ---------------------------------------------------------------- the store

@@ -6,6 +6,9 @@ of ``repro.launch.inputs``).
 step of each (architecture x input-shape) cell, including decode KV
 caches (batch over (pod,data); cache context over the model axis =
 split-KV decode).
+
+On a process mesh, :func:`shard_caches` and :func:`shard_batch` make the
+caches and a batch themselves, as ``DTensor``s laid out by those specs.
 """
 
 from __future__ import annotations
@@ -16,12 +19,14 @@ from repro_torch.configs.base import ShapeSpec
 from repro_torch.models import init_caches, param_shapes
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import tree_map
+from repro_torch.models.model import Caches
 
 from .mesh import batch_axes
-from .sharding import P, Sharded, ShardingRules, param_sharding
+from .sharding import (P, Sharded, ShardingRules, distribute, param_sharding,
+                       require_blocks)
 
 __all__ = ["input_specs", "cache_specs", "batch_sds", "decode_batch_sds",
-           "param_specs_sharded"]
+           "param_specs_sharded", "shard_caches", "shard_batch"]
 
 
 def _sds(mesh, shape, dtype, spec) -> Sharded:
@@ -111,3 +116,35 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec, mesh,
         return params, batch_sds(cfg, shape, mesh, rules)
     return params, cache_specs(cfg, shape, mesh, rules), \
         decode_batch_sds(cfg, shape, mesh)
+
+
+def shard_caches(cfg: ModelConfig, B: int, T: int, mesh,
+                 rules: ShardingRules, whole: dict | None = None) -> Caches:
+    """``init_caches(cfg, B, T)`` on the process ``mesh``: each leaf a
+    ``DTensor`` laid out by :func:`cache_specs`, each rank's piece made as
+    zeros on its device (the whole cache is never made).  ``whole``:
+    caches of that shape that every rank holds the same (a decode that
+    goes on from them); each rank's piece is cut from them instead."""
+    require_blocks(cfg, mesh)        # their caches start at zero
+    specs = cache_specs(cfg, ShapeSpec("serve", T, B, "decode"), mesh, rules)
+    dev = mesh.device()
+
+    def one(s: Sharded, w=None):
+        if w is None:
+            local = torch.zeros(s.shard_shape(), dtype=s.dtype, device=dev)
+            return distribute(s.meta(), s.spec, mesh, local=local)
+        if tuple(w.shape) != tuple(s.shape) or w.dtype != s.dtype:
+            raise ValueError(f"a cache leaf of {tuple(w.shape)} {w.dtype}, "
+                             f"not {tuple(s.shape)} {s.dtype}")
+        return distribute(w.to(dev), s.spec, mesh)
+
+    if whole is None:
+        return Caches(tree_map(one, specs))
+    return Caches(tree_map(one, specs, dict(whole)))
+
+
+def shard_batch(batch: dict, mesh) -> dict:
+    """Each input of ``batch`` (every rank holds the same whole batch) as
+    a ``DTensor`` split over the batch axes by :func:`_bspec`."""
+    return {k: distribute(v, _bspec(mesh, v.shape[0]), mesh)
+            for k, v in batch.items()}

@@ -10,6 +10,11 @@ and a device may repeat.  Without ``devices`` every position is the card
 (the counterpart of the reference's forced host devices); ``devices``
 names one device to repeat (``"cpu"``, or ``"meta"`` for a plan that
 allocates nothing) or lists one device a position.
+
+:func:`make_process_mesh` is the mesh of a program that runs one process
+a position (``launch/spmd``): a :class:`~repro_torch.core.mesh.ProcessMesh`
+over the ranks of the default process group, whose tensors are split
+across the positions.
 """
 
 from __future__ import annotations
@@ -19,9 +24,12 @@ import math
 import torch
 
 from repro_torch.core.engine import resolve_device
-from repro_torch.core.mesh import Mesh
+from repro_torch.core.mesh import Mesh, ProcessMesh
 
-__all__ = ["make_production_mesh", "batch_axes", "HW", "hbm_bytes"]
+__all__ = ["make_production_mesh", "make_process_mesh", "batch_axes", "HW",
+           "hbm_bytes", "AXIS_ORDER"]
+
+AXIS_ORDER = ("pod", "data", "model")   # the reference's, major to minor
 
 
 def make_production_mesh(*, multi_pod: bool = False, devices=None) -> Mesh:
@@ -33,6 +41,35 @@ def make_production_mesh(*, multi_pod: bool = False, devices=None) -> Mesh:
     if isinstance(devices, (str, torch.device)):
         devices = [resolve_device(devices)] * n
     return Mesh(tuple(devices), axes, shape)
+
+
+def make_process_mesh(shape, axes, device) -> ProcessMesh:
+    """The mesh of ``shape`` over the ranks of the default process group,
+    rank ``r`` at row-major position ``r``, each rank on ``device`` (its
+    own: the caller names it, as it named the backend).  ``axes`` keep the
+    reference's order (pod, data, model); the group's size must be the
+    mesh's."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} has {len(shape)} axes, names "
+                         f"{axes} {len(axes)}")
+    order = [AXIS_ORDER.index(a) for a in axes if a in AXIS_ORDER]
+    if len(order) != len(axes) or order != sorted(set(order)):
+        raise ValueError(f"mesh axes {axes} are not in the order "
+                         f"{AXIS_ORDER}")
+    n = math.prod(shape)
+    if dist.get_world_size() != n:
+        raise ValueError(f"a mesh of shape {shape} needs {n} processes, the "
+                         f"group has {dist.get_world_size()}")
+    device = torch.device(device)
+    # a mesh of "meta" pieces (a plan) is a CPU mesh to DTensor, which
+    # then issues its shard all-to-all as an all-gather and a chunk
+    kind = "cpu" if device.type == "meta" else device.type
+    grid = torch.arange(n).reshape(shape)
+    return ProcessMesh(DeviceMesh(kind, grid, mesh_dim_names=axes), device)
 
 
 def batch_axes(mesh) -> tuple:

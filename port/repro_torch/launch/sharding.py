@@ -11,15 +11,29 @@ specs compare equal as tuples.
 
 The reference hands each resolved spec to GSPMD
 (``jax.lax.with_sharding_constraint``), which lays the tensor out over the
-mesh.  The port runs one program on one device.  On a mesh whose positions
-are all one device every layout is that device's whole tensor, so
-:func:`constraint` and :func:`param_constraint` resolve the spec, check it
-against the tensor (its rank, each split dividing its dimension, its
-device) and return the tensor itself: what a layout hint computes there.
-A mesh of two or more distinct devices needs each tensor split across
-them, which the port does not do (ROADMAP, "multi-card model
-execution"): they raise ``NotImplementedError`` rather than run
-unsharded.
+mesh.  The port has two kinds of mesh:
+
+- a :class:`~repro_torch.core.mesh.Mesh` of one device in one process
+  (``cpu``, ``meta`` or one card, repeated): every layout there is that
+  device's whole tensor, so :func:`constraint` and
+  :func:`param_constraint` resolve the spec, check it against the tensor
+  (its rank, each split dividing its dimension, its device) and return the
+  tensor itself.  A mesh of distinct devices in one process raises
+  ``NotImplementedError``;
+- a :class:`~repro_torch.core.mesh.ProcessMesh`, one process a position
+  (``launch/spmd``): every tensor is a ``DTensor``, and the two turn the
+  resolved spec into its placements (:func:`placements`) and
+  ``redistribute`` to them, as GSPMD does.  A plain tensor there raises:
+  nothing runs unsharded behind the caller's back.  Under ``rules_ctx``
+  with such a mesh, a plain tensor the model makes (a mask, the rotary
+  frequencies, a position) counts as replicated
+  (``implicit_replication``); the parameters, caches and inputs are laid
+  out by their specs (:func:`distribute`, ``convert.shard_params``,
+  ``launch/inputs.shard_caches``).  Two ops are written out by hand,
+  where DTensor's own strategy gives a wrong result: :func:`index_copy_`,
+  a cache row written in place on the rank that holds its slot, and
+  :func:`embedding`, the lookup in a split table.  Only ``attn_mlp``
+  stacks run sharded so far (:func:`require_block`).
 """
 
 from __future__ import annotations
@@ -31,11 +45,17 @@ import threading
 
 import torch
 
-from repro_torch.core.mesh import Mesh
+from repro_torch.core.mesh import Mesh, ProcessMesh
 
 __all__ = ["P", "ShardingRules", "DEFAULT_RULES", "Sharded", "rules_ctx",
            "current_rules", "constraint", "param_constraint",
-           "logical_to_spec", "param_sharding", "shard_shape"]
+           "logical_to_spec", "param_sharding", "shard_shape", "placements",
+           "distribute", "local_shard", "index_copy_", "embedding",
+           "require_block", "require_blocks", "SHARDED_BLOCKS"]
+
+# the blocks that run on a ProcessMesh (the rest are ROADMAP Queue 1's
+# later slices of item 8a)
+SHARDED_BLOCKS = ("attn_mlp",)
 
 # logical axis -> mesh axis (or None = replicated).  "batch" maps to the
 # combined (pod, data) axes; "embed"/"heads"/"mlp"/"vocab"/"experts" are the
@@ -100,7 +120,12 @@ def rules_ctx(rules: ShardingRules | None, mesh: Mesh | None = None):
     elif rules is None:
         _tls.mesh_axes = _tls.mesh = None
     try:
-        yield
+        with contextlib.ExitStack() as stack:
+            if isinstance(_tls.mesh, ProcessMesh):
+                from torch.distributed.tensor.experimental import \
+                    implicit_replication
+                stack.enter_context(implicit_replication())
+            yield
     finally:
         _tls.rules, _tls.mesh_axes, _tls.mesh = old
 
@@ -146,12 +171,199 @@ def shard_shape(shape: tuple, spec: P, mesh_axes: dict) -> tuple:
     return tuple(out)
 
 
+def placements(spec: P, mesh: ProcessMesh) -> tuple:
+    """``spec`` as DTensor placements over ``mesh``'s axes: ``Shard(i)``
+    on each mesh axis that entry ``i`` names, ``Replicate()`` on the rest.
+    A dimension split by two or more axes takes them in mesh order, which
+    is ``PartitionSpec``'s major-to-minor order; a spec naming them in
+    another order raises ValueError, as does an axis the mesh lacks or one
+    named twice."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = mesh.axis_names
+    out = [Replicate()] * len(names)
+    for i, part in enumerate(spec):
+        if part is None:
+            continue
+        axes = _axes_of(part)
+        idx = []
+        for a in axes:
+            if a not in names:
+                raise ValueError(f"spec {spec} names {a!r}, not an axis of "
+                                 f"the mesh {names}")
+            idx.append(names.index(a))
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec} splits dimension {i} over {axes}, "
+                             f"not in the mesh's order {names}")
+        for j in idx:
+            if out[j] != Replicate():
+                raise ValueError(f"spec {spec} names {names[j]!r} twice")
+            out[j] = Shard(i)
+    return tuple(out)
+
+
+def _offsets(shape: tuple, places: tuple, mesh: ProcessMesh) -> list:
+    """(start, length) of this rank's shard along each dimension of a
+    ``shape`` tensor laid out by ``places`` (mesh axes in order, each
+    cutting its dimension's current piece into equal parts)."""
+    span = [(0, n) for n in shape]
+    for c, n, pl in zip(mesh.coordinate, mesh.shape, places):
+        if pl.is_shard():
+            start, length = span[pl.dim]
+            length //= n
+            span[pl.dim] = (start + c * length, length)
+    return span
+
+
+def local_shard(t: torch.Tensor, spec: P, mesh: ProcessMesh) -> torch.Tensor:
+    """This rank's piece of the whole tensor ``t`` laid out by ``spec``
+    (a view)."""
+    shard_shape(tuple(t.shape), spec, mesh.axis_sizes)
+    for d, (start, length) in enumerate(
+            _offsets(tuple(t.shape), placements(spec, mesh), mesh)):
+        t = t.narrow(d, start, length)
+    return t
+
+
+def distribute(t: torch.Tensor, spec: P, mesh: ProcessMesh,
+               local: torch.Tensor | None = None):
+    """A ``DTensor`` of the global shape of ``t`` laid out by ``spec``,
+    made from this rank's piece with no communication: every rank holds
+    the same ``t`` (or a ``meta`` stand-in of it, with the piece given as
+    ``local``)."""
+    from torch.distributed.tensor import DTensor
+
+    if local is None:
+        local = local_shard(t, spec, mesh).contiguous()
+    return DTensor.from_local(local, mesh.device_mesh,
+                              placements(spec, mesh), run_check=False,
+                              shape=t.shape, stride=_contiguous(t.shape))
+
+
+def _contiguous(shape) -> tuple:
+    out, n = [], 1
+    for d in reversed(tuple(shape)):
+        out.append(n)
+        n *= d
+    return tuple(reversed(out))
+
+
+def _redistribute(x, spec: P, mesh: ProcessMesh):
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        raise TypeError(f"a plain {tuple(x.shape)} tensor under a process "
+                        f"mesh (spec {spec}): lay it out with "
+                        "sharding.distribute")
+    shard_shape(tuple(x.shape), spec, mesh.axis_sizes)
+    want = placements(spec, mesh)
+    if tuple(x.placements) != want:
+        x = x.redistribute(mesh.device_mesh, want)
+    return x
+
+
+def index_copy_(dst, dim: int, index, src):
+    """``dst.index_copy_(dim, index, src)`` for a one-element ``index``
+    (a device tensor, never read on the host).  On a ``DTensor`` by hand:
+    DTensor runs an in-place ``index_copy_`` on a redistributed copy of
+    ``dst`` and leaves ``dst`` as it was (torch 2.13).  Here ``src`` is
+    laid out as ``dst`` with ``dim`` whole, and each rank writes the row
+    into its own piece when the slot falls in it (and its row back where
+    it does not).  Returns ``dst``."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(dst, DTensor):
+        return dst.index_copy_(dim, index, src)
+    mesh = getattr(_tls, "mesh", None)
+    if not isinstance(mesh, ProcessMesh):
+        raise TypeError("a DTensor write outside rules_ctx of its "
+                        "process mesh")
+    want = tuple(Replicate() if p.is_shard(dim) else p
+                 for p in dst.placements)
+    if any(p.is_partial() for p in want):
+        raise ValueError(f"a cache laid out as {dst.placements}")
+    src = src.redistribute(mesh.device_mesh, want).to_local()
+    start, length = _offsets(tuple(dst.shape), tuple(dst.placements),
+                             mesh)[dim]
+    idx = index.to_local() if isinstance(index, DTensor) else index
+    i = idx - start
+    ok = (i >= 0) & (i < length)
+    i = i.clamp(0, length - 1)
+    loc = dst.to_local()
+    keep = loc.index_select(dim, i)
+    loc.index_copy_(dim, i, torch.where(ok, src, keep))
+    return dst
+
+
+def embedding(tokens, table):
+    """``F.embedding(tokens, table)``.  On ``DTensor``s, by hand: DTensor's
+    own strategy pairs a vocab-split table with a masked partial sum whose
+    mask it later applies to a tensor of another shape (an IndexError in
+    torch 2.11 and 2.13).  Here the tokens are gathered whole over each
+    mesh axis that splits the table, and each rank looks them up in its
+    piece: over an axis splitting the vocabulary, a rank zeros the tokens
+    outside its range and the result is a partial sum; over one splitting
+    the embedding dimension, the result is split there too.  Over the
+    other axes it keeps the tokens' layout.  The table itself is never
+    gathered."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if not isinstance(table, DTensor):
+        return F.embedding(tokens, table)
+    mesh = getattr(_tls, "mesh", None)
+    if not isinstance(mesh, ProcessMesh):
+        raise TypeError("a DTensor lookup outside rules_ctx of its "
+                        "process mesh")
+    if any(p.is_partial() for p in (*table.placements, *tokens.placements)):
+        raise ValueError(f"an embedding of tokens laid out as "
+                         f"{tokens.placements} in a table laid out as "
+                         f"{table.placements}")
+    tok = tuple(Replicate() if t.is_shard() else p
+                for p, t in zip(tokens.placements, table.placements))
+    tokens = tokens.redistribute(mesh.device_mesh, tok)
+    start, length = _offsets(tuple(table.shape), tuple(table.placements),
+                             mesh)[0]
+    ids = tokens.to_local() - start
+    ok = (ids >= 0) & (ids < length)
+    rows = F.embedding(ids.clamp(0, length - 1), table.to_local())
+    rows = rows * ok[..., None].to(rows.dtype)
+    places = tuple(Partial() if t.is_shard(0) else
+                   Shard(tokens.ndim) if t.is_shard(1) else p
+                   for p, t in zip(tok, table.placements))
+    shape = tuple(tokens.shape) + (table.shape[1],)
+    return DTensor.from_local(rows, mesh.device_mesh, places,
+                              run_check=False, shape=shape,
+                              stride=_contiguous(shape))
+
+
+def require_block(block: str, mesh=None) -> None:
+    """Raise ``NotImplementedError`` for a block that does not run on a
+    process mesh yet (``mesh``, else the current one); nothing else (no
+    process mesh, or a block that does)."""
+    mesh = mesh if mesh is not None else getattr(_tls, "mesh", None)
+    if isinstance(mesh, ProcessMesh) and block not in SHARDED_BLOCKS:
+        raise NotImplementedError(
+            f"block {block!r} on a process mesh: only {SHARDED_BLOCKS} run "
+            "sharded so far; the rest are later slices of ROADMAP Queue 1 "
+            "item 8a")
+
+
+def require_blocks(cfg, mesh) -> None:
+    """:func:`require_block` for every block of ``cfg``'s stack."""
+    for st in cfg.prologue + cfg.pattern:
+        require_block(st.block, mesh)
+
+
 def _place(x: torch.Tensor, spec: P) -> torch.Tensor:
     """``x`` itself, once ``spec`` is checked against it and the current
-    mesh (none: nothing to check)."""
+    mesh (none: nothing to check); on a process mesh, ``x`` laid out by
+    ``spec``."""
     mesh = getattr(_tls, "mesh", None)
     if mesh is None:
         return x
+    if isinstance(mesh, ProcessMesh):
+        return _redistribute(x, spec, mesh)
     dev = mesh.device()
     shard_shape(tuple(x.shape), spec, mesh.axis_sizes)
     if x.device != dev:

@@ -1,13 +1,20 @@
 """The step functions: train_step (forward + backward + AdamW, remat,
-microbatching) and serve_step (one-token decode over caches); the port of
-``repro.launch.steps``.
+microbatching), serve_step (one-token decode over caches) and
+prefill_step (the last position's logits of a prompt batch); the port of
+``repro.launch.steps`` (the prefill is what the reference's dry run
+jits).
 
 The steps run eagerly: there is no ``jit`` to build them for, and the
 gradients come from autograd over the model's forward.  With ``rules``
 the step runs under ``rules_ctx(rules, mesh)``, so that the model's
 sharding hooks resolve and check every layout (``launch/sharding``); a
-mesh of distinct devices raises ``NotImplementedError`` when the step is
-built.
+mesh of distinct devices in one process raises ``NotImplementedError``
+when the step is built.  On a process mesh (``core.mesh.ProcessMesh``,
+one process a position) the serve and prefill steps run sharded: the
+parameters, caches and batch are ``DTensor``s (``convert.shard_params``,
+``inputs.shard_caches``, ``inputs.shard_batch``) and so are the logits
+(``full_tensor()`` gathers them).  The train step does not run on one yet
+(ROADMAP Queue 1 item 8a).
 """
 
 from __future__ import annotations
@@ -17,18 +24,20 @@ import dataclasses
 import torch
 
 from repro_torch.core.engine import resolve_device
-from repro_torch.models import (Model, decode_step, init_params, loss_fn,
-                                param_shapes)
+from repro_torch.models import (Model, decode_step, forward, init_params,
+                                loss_fn, param_shapes)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import tree_leaves, tree_unflatten
 from repro_torch.models.model import REMATS
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_state_shapes,
                                adamw_update)
 
-from .sharding import ShardingRules, param_sharding, rules_ctx
+from repro_torch.core.mesh import ProcessMesh
+
+from .sharding import ShardingRules, param_sharding, require_blocks, rules_ctx
 
 __all__ = ["TrainConfig", "build_train_step", "build_serve_step",
-           "init_train_state", "opt_state_specs"]
+           "build_prefill_step", "init_train_state", "opt_state_specs"]
 
 _ACC = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -60,6 +69,10 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     mb > 1 the batch is cut into mb chunks along its first axis, the
     gradients summed in ``grad_accum_dtype``, then loss and gradients
     divided by mb."""
+    if isinstance(mesh, ProcessMesh):
+        raise NotImplementedError(
+            "the train step on a process mesh is a later slice of ROADMAP "
+            "Queue 1 item 8a")
     if mesh is not None:
         mesh.device()                # a mesh of distinct devices raises
     if tcfg.remat not in REMATS:
@@ -108,8 +121,7 @@ def build_serve_step(cfg: ModelConfig, rules=None, mesh=None,
                      unroll: bool = False):
     """serve_step(params, caches, batch) -> (logits, caches): one new token
     against a pre-filled KV/state cache, the caches written in place."""
-    if mesh is not None:
-        mesh.device()                # a mesh of distinct devices raises
+    _check_mesh(cfg, mesh)
 
     def serve_step(params, caches, batch):
         with rules_ctx(rules, mesh), torch.inference_mode():
@@ -120,6 +132,34 @@ def build_serve_step(cfg: ModelConfig, rules=None, mesh=None,
                 unroll=unroll)
 
     return serve_step
+
+
+def build_prefill_step(cfg: ModelConfig, rules=None, mesh=None,
+                       unroll: bool = False):
+    """prefill_step(params, batch) -> logits (B, 1, V): ``forward`` over
+    the batch's prompts with no remat and only the last position
+    projected, as the reference's dry run jits its prefill cells."""
+    _check_mesh(cfg, mesh)
+
+    def prefill_step(params, batch):
+        with rules_ctx(rules, mesh), torch.inference_mode():
+            logits, _ = forward(
+                params, cfg, tokens=batch.get("tokens"),
+                embeds=batch.get("embeds"),
+                aux={k: v for k, v in batch.items() if k == "image_embed"},
+                remat="none", last_only=True, unroll=unroll)
+            return logits
+
+    return prefill_step
+
+
+def _check_mesh(cfg: ModelConfig, mesh) -> None:
+    """A mesh of distinct devices in one process, or a block that does not
+    run on a process mesh yet, raises ``NotImplementedError``."""
+    if isinstance(mesh, ProcessMesh):
+        require_blocks(cfg, mesh)
+    elif mesh is not None:
+        mesh.device()
 
 
 def init_train_state(cfg: ModelConfig, tcfg: TrainConfig,

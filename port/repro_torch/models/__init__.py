@@ -3,8 +3,9 @@
 
 from .config import ModelConfig, StageSpec
 from .model import (Model, decode_step, execution_runs, forward,
-                    init_caches, init_params, loss_fn, param_shapes)
+                    init_caches, init_leaves, init_params, loss_fn,
+                    param_shapes)
 
 __all__ = ["ModelConfig", "StageSpec", "Model", "param_shapes",
-           "init_params", "forward", "loss_fn", "decode_step", "init_caches",
-           "execution_runs"]
+           "init_params", "init_leaves", "forward", "loss_fn", "decode_step",
+           "init_caches", "execution_runs"]

@@ -9,7 +9,8 @@ cast to the query's dtype, then the f32 cast and the additive mask,
 softmax in f32 cast back to the values' dtype), so the products stay plain
 ``torch.einsum`` rather than a library attention call.
 
-Decode writes the caches in place (``index_copy_`` at a device index):
+Decode writes the caches in place (``index_copy_`` at a device index;
+``launch/sharding.index_copy_`` on a cache split over a process mesh):
 the step makes no host read, and the returned cache holds the same cache
 tensors it was given.
 """
@@ -20,6 +21,8 @@ import functools
 import math
 
 import torch
+
+from repro_torch.launch.sharding import index_copy_
 
 from .layers import Spec, rms_norm, rope, shard
 
@@ -190,8 +193,8 @@ def gqa_decode(x, p, cfg, cache, window=None):
     k = rope(k, posb, cfg.rope_theta)
     slot = (pos % T) if window is not None else torch.clamp(pos, max=T - 1)
     idx = slot.reshape(1).long()
-    ck = cache["k"].index_copy_(1, idx, k)
-    cv = cache["v"].index_copy_(1, idx, v)
+    ck = index_copy_(cache["k"], 1, idx, k)
+    cv = index_copy_(cache["v"], 1, idx, v)
     kpos = torch.arange(T, device=x.device)
     if window is not None:
         # ring buffer: valid entries are the last min(pos+1, T) writes

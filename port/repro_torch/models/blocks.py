@@ -23,7 +23,8 @@ import torch
 from .attention import (cross_attention, cross_attn_shapes, gqa_attention,
                         gqa_decode, gqa_shapes, mla_attention, mla_decode,
                         mla_shapes)
-from .layers import Spec, apply_norm, glu_mlp, mlp_shapes, norm_shapes
+from .layers import (Spec, apply_norm, glu_mlp, mlp_shapes, norm_shapes,
+                     shard)
 from .moe import moe_ffn, moe_shapes
 from .ssm import (mamba, mamba_decode, mamba_shapes, mlstm, mlstm_decode,
                   mlstm_shapes, slstm, slstm_decode, slstm_shapes)
@@ -34,6 +35,13 @@ __all__ = ["BLOCKS", "AttnMlp", "AttnMoe", "MlaMoe", "MlaDense", "Hybrid",
 
 def _zeros(shape, dtype, device):
     return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def _whole(a):
+    """The attention output laid out as the residual stream, before the
+    second norm reads it (a layout hint; on a process mesh its partial sum
+    over "model" is reduced here once, not again in each op after it)."""
+    return shard(a, ("batch", "seq", "embed"))
 
 
 # --------------------------------------------------------------- attn_mlp
@@ -60,7 +68,7 @@ class AttnMlp:
             return x + gqa_attention(h, p["attn"], cfg, window=cfg.window) \
                 + glu_mlp(h, p["mlp"], cfg.act), 0.0
         h = apply_norm(x, p["ln1"], cfg)
-        x = x + gqa_attention(h, p["attn"], cfg, window=cfg.window)
+        x = x + _whole(gqa_attention(h, p["attn"], cfg, window=cfg.window))
         h = apply_norm(x, p["ln2"], cfg)
         return x + glu_mlp(h, p["mlp"], cfg.act), 0.0
 
@@ -72,7 +80,7 @@ class AttnMlp:
             return x + a + glu_mlp(h, p["mlp"], cfg.act), cache
         h = apply_norm(x, p["ln1"], cfg)
         a, cache = gqa_decode(h, p["attn"], cfg, cache, window=cfg.window)
-        x = x + a
+        x = x + _whole(a)
         h = apply_norm(x, p["ln2"], cfg)
         return x + glu_mlp(h, p["mlp"], cfg.act), cache
 

@@ -33,14 +33,16 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.core.engine import resolve_device
-from repro_torch.launch.sharding import param_constraint
+from repro_torch.launch.sharding import (embedding, param_constraint,
+                                         require_block)
 
 from .blocks import BLOCKS
 from .config import ModelConfig
 from .layers import (Spec, apply_norm, cross_entropy, norm_shapes, shard,
-                     tree_map)
+                     tree_map, tree_paths, tree_unflatten)
 
-__all__ = ["param_shapes", "init_params", "forward", "loss_fn",
+__all__ = ["param_shapes", "init_params", "init_leaves", "forward",
+           "loss_fn",
            "decode_step", "init_caches", "execution_runs", "Model",
            "ParamTree", "Layer", "Caches", "REMATS"]
 
@@ -157,6 +159,7 @@ class Layer(nn.Module):
         """The block's forward; with ``specs`` (the stage's stacked
         ``Spec`` tree) each leaf of the row first passes through
         ``param_constraint`` on its per-layer axes."""
+        require_block(self.block)
         p = self.rows()
         if specs is not None:
             p = tree_map(lambda a, s: param_constraint(a, s.axes[1:]), p,
@@ -166,6 +169,7 @@ class Layer(nn.Module):
     def decode(self, x, cfg, caches: "Caches", aux):
         """Decode one token through this layer, writing its row of the
         stage's stacked ``caches`` in place."""
+        require_block(self.block)
         cache = caches.rows[self.key][self.index]
         y, new = BLOCKS[self.block].decode(x, self.rows(), cfg, cache, aux)
         _write_back(cache, new)
@@ -226,10 +230,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     drawn in f32 and cast, the rest (unstacked biases) -> zeros.  Drawn
     leaves are drawn in sorted path order on ``generator``'s device, then
     placed on ``device`` (the card unless ``device="cpu"``)."""
+    return Model(cfg, tree_unflatten(param_shapes(cfg), [
+        leaf for _, leaf in init_leaves(cfg, generator, device)]))
+
+
+def init_leaves(cfg: ModelConfig, generator: torch.Generator,
+                device: str = "cuda"):
+    """``init_params``' leaves one at a time, as (dotted name, tensor) in
+    sorted key order (its draw order): a caller that keeps a piece of each
+    (``convert.shard_params``) never holds the whole tree."""
     dev = resolve_device(device)
 
-    def one(path, s):
-        nm = "/".join(path).lower()
+    def one(name, s):
+        nm = name.replace(".", "/").lower()
         if any(t in nm for t in ("norm", "ln1", "ln2", "/na", "/nm")):
             return torch.ones(s.shape, dtype=s.dtype, device=dev)
         if "gate" in nm:
@@ -249,14 +262,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             return w.to(s.dtype).to(dev)
         return torch.zeros(s.shape, dtype=s.dtype, device=dev)   # biases
 
-    return Model(cfg, _map(one, param_shapes(cfg)))
+    for name, spec in tree_paths(param_shapes(cfg)):
+        yield name, one(name, spec)
 
 
 def _embed(params: Model, cfg: ModelConfig, tokens, embeds):
     if cfg.inputs_embeds:
         return embeds.to(_dtype(cfg))
-    e = params.params.embed
-    return e[tokens.long()].to(_dtype(cfg))
+    # the gather as ``F.embedding`` (``sharding.embedding`` reads a split
+    # table without gathering it)
+    return embedding(tokens.long(), params.params.embed).to(_dtype(cfg))
 
 
 def _logits(params: Model, cfg: ModelConfig, x):
@@ -433,7 +448,10 @@ def decode_step(params: Model, cfg: ModelConfig, caches: Caches,
     ``unroll`` is the reference's loop form; it changes no value here."""
     del unroll
     aux = aux or {}
-    x = _embed(params, cfg, tokens, embeds)
+    # the residual stream laid out as ``forward`` lays it out (a layout
+    # hint; on a process mesh it keeps DTensor from carrying partial sums
+    # across layers)
+    x = shard(_embed(params, cfg, tokens, embeds), ("batch", "seq", "embed"))
     for layer in params.blocks:
-        x = layer.decode(x, cfg, caches, aux)
+        x = shard(layer.decode(x, cfg, caches, aux), ("batch", "seq", "embed"))
     return _logits(params, cfg, x), caches

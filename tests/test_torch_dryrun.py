@@ -182,13 +182,21 @@ def test_run_cell_plans_every_smoke_config_on_meta(monkeypatch, arch, shape):
     assert r["cost"]["flops"] > 0 and r["cost"]["bytes accessed"] > 0
     assert set(r["collectives"]) == set(COLLECTIVES)
     c = r["collectives"]
+    sharded = shape != "train_4k" and all(
+        st.block == "attn_mlp" for st in get_smoke_config(arch).pattern
+        + get_smoke_config(arch).prologue)
     if shape == "train_4k":    # every gradient is reduced over the batch
+        assert c["reduce-scatter"] + c["all-reduce"] > 0
+    elif sharded:              # DTensor's run: the activations' sums too
         assert c["reduce-scatter"] + c["all-reduce"] > 0
     else:
         assert c["reduce-scatter"] == c["all-reduce"] == 0
-    assert (r["temp_scope"], r["cost_split"], r["collectives_scope"]) == (
+    assert (r["temp_scope"], r["cost_split"], r["collectives_scope"]) == ((
+        "one position's shard (DTensor placements)", "even",
+        "all (DTensor placements)") if sharded else (
         "model axis unsplit (upper bound)", "even",
-        "parameters and gradients")
+        "parameters and gradients"))
+    assert sum(r["argument_parts"].values()) == mem["argument_bytes"]
     assert r["n_devices"] == 256 and r["per_position_batch"] == 2
     if shape == "prefill_32k":
         assert mem["alias_bytes"] == 0

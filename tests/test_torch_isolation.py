@@ -64,6 +64,7 @@ def test_importing_every_module_loads_no_jax_or_repro():
             "repro_torch.launch.sharding", "repro_torch.launch.inputs",
             "repro_torch.launch.elastic", "repro_torch.launch.plan",
             "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+            "repro_torch.launch.spmd",
             "repro_torch.optim",
             "repro_torch.optim.adamw", "repro_torch.optim.schedule",
             "repro_torch.optim.grad_compress", "repro_torch.data",
@@ -107,6 +108,25 @@ def test_no_source_imports_jax_or_repro():
     for p in paths:
         bad = FORBIDDEN.intersection(_imports(p))
         assert not bad, f"{p} imports {bad}"
+
+
+def test_sharded_serve_ranks_import_no_jax_or_repro():
+    """The ranks of ``test_torch_sharded_serve.py`` import that module
+    (for its rank body) and the port's process launcher: no JAX may load
+    in them, so the module imports it only inside its reference side."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {os.path.join(REPO, "tests")!r})
+        import test_torch_sharded_serve
+        from repro_torch.launch import spmd
+        bad = sorted(k for k in sys.modules
+                     if k.split(".")[0] in {sorted(FORBIDDEN)!r})
+        print(",".join(bad))
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120, check=True)
+    assert out.stdout.strip() == ""
 
 
 def test_default_store_needs_a_card(monkeypatch):

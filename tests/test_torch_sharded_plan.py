@@ -1,0 +1,172 @@
+"""The dry run's serving cells on DTensor placements (``launch/dryrun``'s
+``sharded_plan``, ``launch/plan``'s ``ShardMeter`` and
+``fake_process_group``): every collective DTensor issues at one position
+of a fake process group, by kind and result bytes.
+
+A fake process group is a default process group, which is global to a
+process, so every plan here runs in a subprocess (this file run as a
+script) that hands back JSON.
+
+The hand counts take each collective's result bytes from the shapes the
+specs give one position.  Which collective carries a piece from one
+layout to another is DTensor's choice, and GSPMD chooses others for the
+same specs, which is why the two packages' figures are compared, not
+held equal."""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+sys.path.insert(0, os.path.join(REPO, "port"))
+
+import pytest  # noqa: E402
+
+F32 = 4
+# the one-layer decode: qwen2.5-14b's smoke widths, one unit, no biases,
+# B rows, a cache of T (under 256, so its context is not split), on a
+# (data 2, model 2) mesh with the parameters' FSDP split off
+B, T = 4, 32
+LAYER = {"n_units": 1, "qkv_bias": False}
+
+
+def plans() -> dict:
+    """Every plan of this file (in a process of its own)."""
+    import torch
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.launch.plan import ShardMeter, fake_process_group
+    from repro_torch.launch.sharding import DEFAULT_RULES, ShardingRules
+
+    out = {"redistribute": {}}
+    with fake_process_group(4):
+        dm = make_process_mesh((2, 2), ("data", "model"), "meta").device_mesh
+        for name, src, dst in (
+                ("shard_to_replicate", [Shard(0), Replicate()],
+                 [Replicate(), Replicate()]),
+                ("partial_to_replicate", [Replicate(), Partial()],
+                 [Replicate(), Replicate()]),
+                ("partial_to_shard", [Replicate(), Partial()],
+                 [Replicate(), Shard(1)])):
+            x = DTensor.from_local(torch.empty(4, 8, device="meta"), dm, src,
+                                   run_check=False)
+            with ShardMeter() as m:
+                x.redistribute(dm, dst)
+            out["redistribute"][name] = [m.collectives, m.counts]
+    cfg = dataclasses.replace(get_smoke_config("qwen2.5-14b"), **LAYER)
+    rules = ShardingRules(DEFAULT_RULES, embed_fsdp=None)
+    out["layer"] = dryrun.sharded_plan(
+        cfg, ShapeSpec("layer", T, B, "decode"),
+        make_mesh((2, 2), ("data", "model"), ["meta"] * 4), rules)
+    out["cells"] = {}
+    for arch, shape, units in (("qwen2-0.5b", "decode_32k", 1),
+                               ("qwen2-0.5b", "prefill_32k", 1),
+                               ("qwen2-0.5b", "train_4k", 1),
+                               ("deepseek-v2-lite-16b", "decode_32k", 1)):
+        r = dryrun.run_cell(arch, shape, units=units)
+        out["cells"][f"{arch}|{shape}"] = {
+            k: r.get(k) for k in ("collectives", "collectives_scope",
+                                  "collective_counts", "temp_scope",
+                                  "memory", "argument_parts")}
+    return out
+
+
+@pytest.fixture(scope="module")
+def planned(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("sharded_plan") / "plans.json")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "port"))
+    subprocess.run([sys.executable, os.path.abspath(__file__), path],
+                   env=env, check=True, timeout=600, cwd=REPO)
+    with open(path) as f:
+        return json.load(f)
+
+
+def _kinds(**got) -> dict:
+    out = {"all-gather": 0, "all-reduce": 0, "reduce-scatter": 0,
+           "all-to-all": 0, "collective-permute": 0}
+    out.update(got)
+    return out
+
+
+def test_meter_counts_each_redistribution_by_its_result(planned):
+    """A (4, 8) f32 piece a position: gathered over "data" to (8, 8); a
+    partial sum over "model" reduced whole (4, 8) or scattered to (4, 4)."""
+    r = planned["redistribute"]
+    assert r["shard_to_replicate"] == [_kinds(**{"all-gather": 8 * 8 * F32}),
+                                       _kinds(**{"all-gather": 1})]
+    assert r["partial_to_replicate"] == [
+        _kinds(**{"all-reduce": 4 * 8 * F32}), _kinds(**{"all-reduce": 1})]
+    assert r["partial_to_shard"] == [
+        _kinds(**{"reduce-scatter": 4 * 4 * F32}),
+        _kinds(**{"reduce-scatter": 1})]
+
+
+def test_one_layer_decode_collectives_by_hand(planned):
+    """One attn_mlp layer's decode step, position (0, 0): D 128, 8 heads
+    of 16 in 2 kv groups (one a model position), b = B / 2 rows a data
+    position, the weights split over "model" only.  Three partial sums
+    over "model" are all-reduced, each b rows of D: the embedding's (its
+    vocabulary is split), the attention output's and the layer's (the
+    output products' rows are split).  Three pieces split over "model"
+    are gathered whole: the new k and v rows for the cache write (b x KV x
+    hd each) and the queries for the scores (b x H x hd)."""
+    D, H, KV, hd = 128, 8, 2, 16
+    b = B // 2
+    layer = planned["layer"]
+    assert layer["collectives"] == _kinds(**{
+        "all-reduce": 3 * b * D * F32,
+        "all-gather": 2 * b * KV * hd * F32 + b * H * hd * F32})
+    assert layer["counts"] == _kinds(**{"all-gather": 3, "all-reduce": 3})
+    assert layer["temp_bytes"] > 0
+
+
+@pytest.mark.parametrize("shape", ["decode_32k", "prefill_32k"])
+def test_serving_cells_report_every_collective(planned, shape):
+    c = planned["cells"][f"qwen2-0.5b|{shape}"]
+    assert c["collectives_scope"] == "all (DTensor placements)"
+    assert c["temp_scope"] == "one position's shard (DTensor placements)"
+    assert sum(c["collectives"].values()) > 0
+    assert set(c["collective_counts"]) == set(c["collectives"])
+    assert all((c["collective_counts"][k] > 0) == (v > 0)
+               for k, v in c["collectives"].items())
+    mem = c["memory"]
+    assert mem["peak_bytes"] == (mem["argument_bytes"] + mem["temp_bytes"]
+                                 + mem["output_bytes"] - mem["alias_bytes"])
+    assert sum(c["argument_parts"].values()) == mem["argument_bytes"]
+
+
+@pytest.mark.parametrize("cell", ["qwen2-0.5b|train_4k",
+                                  "deepseek-v2-lite-16b|decode_32k"])
+def test_other_cells_keep_the_parameter_count(planned, cell):
+    c = planned["cells"][cell]
+    assert c["collectives_scope"] == "parameters and gradients"
+    assert c["temp_scope"] == "model axis unsplit (upper bound)"
+    assert c["collective_counts"] is None
+
+
+@pytest.mark.parametrize("name", ["propagate_op_sharding_non_cached",
+                                  "_propagate_tensor_meta_non_cached"])
+def test_meter_raises_without_the_propagation_methods(monkeypatch, name):
+    """A torch whose sharding propagator lacks one of the private methods
+    the meter wraps fails the plan instead of counting DTensor's
+    global-shape ops as the position's."""
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+
+    from repro_torch.launch.plan import ShardMeter
+
+    monkeypatch.delattr(ShardingPropagator, name)
+    with pytest.raises(RuntimeError, match=name):
+        with ShardMeter():
+            pass
+
+
+if __name__ == "__main__":
+    with open(sys.argv[1], "w") as f:
+        json.dump(plans(), f)
