@@ -183,8 +183,31 @@
         config and cell on a (2, 2) mesh of ``meta``).  Its lines have
         the wall ms a step of both runs, the collectives by kind
         (CommDebugMode) and the plan's, and each rank's peak device
-        bytes.  Counts are zeroed just before M and read just after
-        (``launches_m``; the model path runs none of the five kernels).
+        bytes.
+     N  the sharded serve step of the MoE and MLA blocks, on M's mesh,
+        launcher and steps (its ranks run in the same spawn as M's,
+        after them): N1 deepseek-v2-lite-16b at full width in bf16, its
+        dense prologue layer and 3 of its 26 MoE units (``mla_dense``,
+        ``mla_moe``: MLA's compressed cache split over "model", 64
+        experts top-6, 2 shared); N2 mixtral-8x22b at full width in f32,
+        one unit (``attn_moe``: its 4096-slot window ring of 1024 split
+        over "model", 8 experts top-2), the last 4 of its 8 prompts one
+        repeated token id, so that the 1024-token group's capacity (320)
+        drops assignments on the second data rank's tokens; N3 N1's
+        deepseek in f32, its prologue layer and one MoE unit.  Each as M:
+        prefill 8 x 128, 8 decode steps on from 508 written slots of
+        1024, within N_TOL of the unsharded run, each rank's parameter
+        bytes the plan's; its line adds, for every MoE layer's routing,
+        the (layer, token) positions whose top-k experts differ between
+        the two runs and the assignments each dropped, prefill and decode
+        apart, for each MoE layer the unsharded run's largest margin
+        between the k-th and the next expert's probability at the
+        positions that differ, and which MoE calls moved the tokens'
+        rows to the expert weights.  N2 and N3 (f32) must route every
+        token alike; N2 must drop as many on both sides, more than 0.
+        Counts are zeroed just before M and read just after N
+        (``launches_m``, ``launches_n``; the model path runs none of the
+        five kernels).
    After the timed batches of C, D, E and G, 4 of the phase's batches
    replay through its dispatch half (``BourbonStore.dispatch_get`` in C,
    ``ShardedStore.dispatch_get`` in D and G, and in E shard 0's
@@ -3228,38 +3251,85 @@ M_RUNS = {"M1": ("bfloat16", 4), "M2": ("float32", 1)}
 # logits' largest magnitude; see PERF.md and port/scripts/shard_tol_control.py
 M_TOL = {"M1": 2.0 ** -5, "M2": 2.0 ** -15}
 
+# phase N: the MoE and MLA blocks on M's mesh, launcher and steps
+N_ARCH = {"N1": "deepseek-v2-lite-16b", "N2": "mixtral-8x22b",
+          "N3": "deepseek-v2-lite-16b"}
+N_B, N_S, N_T, N_STEPS = 8, 128, 1024, 8
+N_POS = N_T // 2 - N_STEPS // 2      # MLA's c_kv and mixtral's ring split
+# (dtype, pattern units): N1 deepseek's dense prologue layer and 3 of its
+# 26 MoE units in bf16 (4 of 27 layers); N2 one of mixtral's 56 units in
+# f32; N3 deepseek's prologue layer and one MoE unit in f32 (N1's path
+# held as M2 holds M1's)
+N_RUNS = {"N1": ("bfloat16", 3), "N2": ("float32", 1),
+          "N3": ("float32", 1)}
+# as M_TOL.  N1's lies between the sound readings of
+# port/scripts/shard_tol_control.py --tag N1 over seeds 0-2 (at most
+# 0.1004: in bf16 about 8% of the (layer, token) routings differ between
+# the two runs, each a whole expert's output) and its faults (the least,
+# the cache row one slot late, 0.1375); see PERF.md.  N3 holds N1's path
+# in f32 as M2 and N2 do, every routing alike
+N_TOL = {"N1": 2.0 ** -3, "N2": 2.0 ** -15, "N3": 2.0 ** -15}
+# runs that must route every (layer, token) position alike on both sides
+N_SAME_ROUTING = ("N2", "N3")
+# runs whose prefill's last N_B // 2 rows repeat one token id: they all
+# route alike, past the capacity (320) of the 1024-token group, so
+# assignments are dropped, on the second data rank's tokens
+N_REPEAT = ("N2",)
+MN_RUNS = tuple(M_RUNS) + tuple(N_RUNS)
 
-def m_config(dtype: str, units: int):
-    """M_ARCH at full width, ``units`` pattern units, in ``dtype``."""
+
+def m_run(tag: str) -> dict:
+    """Phase M's or N's run ``tag``: arch, dtype, pattern units, batch,
+    prompt length, cache length, decode steps, slots written before the
+    decode, and whether the prefill repeats one token id."""
+    if tag in M_RUNS:
+        return dict(arch=M_ARCH, dtype=M_RUNS[tag][0], units=M_RUNS[tag][1],
+                    B=M_B, S=M_S, T=M_T, steps=M_STEPS, pos=M_POS,
+                    repeat=False)
+    return dict(arch=N_ARCH[tag], dtype=N_RUNS[tag][0],
+                units=N_RUNS[tag][1], B=N_B, S=N_S, T=N_T, steps=N_STEPS,
+                pos=N_POS, repeat=tag in N_REPEAT)
+
+
+def m_config(tag: str):
+    """Run ``tag``'s arch at full width, its pattern units, its dtype."""
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config(M_ARCH), n_units=units,
-                               dtype=dtype)
+    run = m_run(tag)
+    return dataclasses.replace(get_config(run["arch"]), n_units=run["units"],
+                               dtype=run["dtype"])
 
 
-def m_tokens(cfg, seed: int) -> tuple:
-    """The prompts (M_B, M_S) and the token each decode step is fed (the
+def m_tokens(tag: str, cfg, seed: int) -> tuple:
+    """The prompts (B, S) and the token each decode step is fed (the
     same on both runs, drawn from ``seed``: teacher-forced, so that no
     near-tie of one run's argmax changes the other's input)."""
+    run = m_run(tag)
     rng = np.random.default_rng(seed + 70)
-    return (rng.integers(0, cfg.vocab, (M_B, M_S)).astype(np.int32),
-            rng.integers(0, cfg.vocab, (M_STEPS, M_B, 1)).astype(np.int32))
+    prompts = rng.integers(0, cfg.vocab, (run["B"], run["S"])).astype(
+        np.int32)
+    fed = rng.integers(0, cfg.vocab, (run["steps"], run["B"], 1)).astype(
+        np.int32)
+    if run["repeat"]:
+        prompts[run["B"] // 2:] = prompts[run["B"] // 2, 0]
+    return prompts, fed
 
 
-def m_caches(cfg, device, seed: int):
-    """``init_caches(cfg, M_B, M_T)`` on ``device`` with the first M_POS
-    slots of every k and v N(0, 1), drawn on the device from ``seed`` (the
-    same on every process), and every ``pos`` at M_POS."""
+def m_caches(tag: str, cfg, device, seed: int):
+    """``init_caches(cfg, B, T)`` on ``device`` with the first ``pos``
+    slots of every cache leaf N(0, 1), drawn on the device from ``seed``
+    (the same on every process), and every ``pos`` at ``pos``."""
     import torch
     from repro_torch.models import init_caches
 
-    caches = init_caches(cfg, M_B, M_T, device=str(device))
+    run = m_run(tag)
+    caches = init_caches(cfg, run["B"], run["T"], device=str(device))
     gen = torch.Generator(device=device).manual_seed(seed + 71)
     for key in sorted(caches):
         for name, t in sorted(caches[key].items()):
             if name == "pos":
-                t.fill_(M_POS)
+                t.fill_(run["pos"])
             else:
-                head = t[:, :, :M_POS]
+                head = t[:, :, :run["pos"]]
                 head.copy_(torch.randn(head.shape, generator=gen,
                                        device=device, dtype=torch.float32))
     return caches
@@ -3281,14 +3351,56 @@ def _comm_kinds(counts: dict) -> dict:
     return {str(k).split(".")[-1]: int(v) for k, v in counts.items()}
 
 
-def m_rank(rank: int, device, dtype: str, units: int, seed: int) -> dict:
-    """One rank of phase M: ``m_config``'s model laid out over the
-    process mesh under DEFAULT_RULES, drawn leaf by leaf with
-    ``init_leaves`` on a generator seeded ``seed`` (the unsharded run's
-    draws); the prefill of M_B x M_S prompts, then M_STEPS decode steps
-    on from ``m_caches``, each timed; then one more prefill and decode
-    step under CommDebugMode for the collectives by kind.  Rank 0 returns
-    the global logits (float32 numpy)."""
+class RouteWatch:
+    """While open: each ``moe.route`` call's probabilities, experts and
+    keep mask, held as the device tensors it returned (no device op, no
+    host read), and ``by_tokens``: the calls whose expert rows moved to
+    the weights (``moe._experts_by_tokens``; the others gathered the
+    weights' pieces, or ran unsharded).  ``host()`` gives the calls
+    after, as (sorted experts (tokens, K), kept (tokens, K), the k-th
+    less the next expert's probability (tokens,)) numpy arrays a call,
+    the tokens in this process's order."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.calls, self.by_tokens = moe, [], []
+        self.real = moe.route, moe._experts_by_tokens
+
+        def spy(xg, router, K, C, before=None):
+            out = self.real[0](xg, router, K, C, before)
+            self.calls.append((out[0], out[1], out[3]))
+            return out
+
+        def moved(*args):
+            self.by_tokens.append(len(self.calls) - 1)
+            return self.real[1](*args)
+        moe.route, moe._experts_by_tokens = spy, moved
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route, self.moe._experts_by_tokens = self.real
+
+    def host(self) -> list:
+        out = []
+        for probs, idx, keep in self.calls:
+            K = idx.shape[-1]
+            top = probs.reshape(-1, probs.shape[-1]).topk(K + 1).values
+            out.append((idx.sort(dim=-1).values.reshape(-1, K).cpu().numpy(),
+                        keep.reshape(-1, K).cpu().numpy(),
+                        (top[:, K - 1] - top[:, K]).cpu().numpy()))
+        return out
+
+
+def m_rank(rank: int, device, tags: tuple, seed: int) -> dict:
+    """One rank of phases M and N, each run of ``tags`` in turn:
+    ``m_config``'s model laid out over the process mesh under
+    DEFAULT_RULES, drawn leaf by leaf with ``init_leaves`` on a generator
+    seeded ``seed`` (the unsharded run's draws); the prefill of the run's
+    prompts, then its decode steps on from ``m_caches``, each timed,
+    every MoE routing watched; then one more prefill and decode step
+    under CommDebugMode for the collectives by kind.  Returns a record a
+    run, rank 0's with the global logits (float32 numpy)."""
     import torch
     import torch.distributed as dist
     from torch.distributed.tensor.debug import CommDebugMode
@@ -3300,113 +3412,178 @@ def m_rank(rank: int, device, dtype: str, units: int, seed: int) -> dict:
     from repro_torch.launch.steps import build_prefill_step, build_serve_step
     from repro_torch.models import init_leaves
 
-    cfg = m_config(dtype, units)
-    torch.cuda.reset_peak_memory_stats(device)
-    ops.reset_launches()
     mesh = make_process_mesh(M_MESH, M_AXES, device)
     rules = ShardingRules(DEFAULT_RULES)
-    t0 = time.perf_counter()
-    gen = torch.Generator(device=device).manual_seed(seed)
-    params = shard_params(init_leaves(cfg, gen, device), mesh, rules, cfg)
-    init_s = time.perf_counter() - t0
-    caches = shard_caches(cfg, M_B, M_T, mesh, rules,
-                          whole=m_caches(cfg, device, seed))
-    prompts, fed = m_tokens(cfg, seed)
-    init_peak = torch.cuda.max_memory_allocated(device)
-    torch.cuda.reset_peak_memory_stats(device)
-    prefill = build_prefill_step(cfg, rules, mesh)
-    serve = build_serve_step(cfg, rules, mesh)
+    out = {}
+    for tag in tags:
+        t_run = time.perf_counter()
+        run = m_run(tag)
+        cfg = m_config(tag)
+        torch.cuda.reset_peak_memory_stats(device)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=device).manual_seed(seed)
+        params = shard_params(init_leaves(cfg, gen, device), mesh, rules,
+                              cfg)
+        init_s = time.perf_counter() - t0
+        caches = shard_caches(cfg, run["B"], run["T"], mesh, rules,
+                              whole=m_caches(tag, cfg, device, seed))
+        prompts, fed = m_tokens(tag, cfg, seed)
+        init_peak = torch.cuda.max_memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        prefill = build_prefill_step(cfg, rules, mesh)
+        serve = build_serve_step(cfg, rules, mesh)
 
-    def batch(t):
-        return shard_batch({"tokens": torch.from_numpy(t).to(device)}, mesh)
+        def batch(t):
+            return shard_batch({"tokens": torch.from_numpy(t).to(device)},
+                               mesh)
 
-    logits, ms = [], []
-    out, t = _m_timed(lambda: prefill(params, batch(prompts)), dist.barrier)
-    logits.append(out.full_tensor())
-    ms.append(t)
-    for tok in fed:
-        (out, caches), t = _m_timed(
-            lambda: serve(params, caches, batch(tok)), dist.barrier)
-        logits.append(out.full_tensor())
-        ms.append(t)
-    with CommDebugMode() as c_pre:
-        prefill(params, batch(prompts))
-    with CommDebugMode() as c_dec:
-        serve(params, caches, batch(fed[-1]))
-    local = [t.to_local() for t in params.parameters()]
-    rec = {"rank": rank, "coordinate": list(mesh.coordinate),
-           "device": str(device),
-           "param_bytes": sum(t.numel() * t.element_size() for t in local),
-           "init_s": init_s, "prefill_ms": ms[0], "decode_ms": ms[1:],
-           "collectives": {"prefill": _comm_kinds(c_pre.get_comm_counts()),
-                           "decode_step": _comm_kinds(
-                               c_dec.get_comm_counts())},
-           "init_peak_device_bytes": init_peak,
-           "serving_peak_device_bytes": torch.cuda.max_memory_allocated(
-               device),
-           "launches": dict(ops.launches)}
-    if rank == 0:
-        rec["logits"] = [x.float().cpu().numpy() for x in logits]
-    return rec
+        logits, ms = [], []
+        with RouteWatch() as routes:
+            out_, t = _m_timed(lambda: prefill(params, batch(prompts)),
+                               dist.barrier)
+            logits.append(out_.full_tensor())
+            ms.append(t)
+            for tok in fed:
+                (out_, caches), t = _m_timed(
+                    lambda: serve(params, caches, batch(tok)), dist.barrier)
+                logits.append(out_.full_tensor())
+                ms.append(t)
+        with CommDebugMode() as c_pre:
+            prefill(params, batch(prompts))
+        with CommDebugMode() as c_dec:
+            serve(params, caches, batch(fed[-1]))
+        local = [t.to_local() for t in params.parameters()]
+        rec = {"rank": rank, "coordinate": list(mesh.coordinate),
+               "device": str(device),
+               "param_bytes": sum(t.numel() * t.element_size()
+                                  for t in local),
+               "init_s": init_s, "prefill_ms": ms[0], "decode_ms": ms[1:],
+               "collectives": {
+                   "prefill": _comm_kinds(c_pre.get_comm_counts()),
+                   "decode_step": _comm_kinds(c_dec.get_comm_counts())},
+               "init_peak_device_bytes": init_peak,
+               "serving_peak_device_bytes": torch.cuda.max_memory_allocated(
+                   device),
+               "launches": dict(ops.launches), "routes": routes.host(),
+               "by_tokens": routes.by_tokens}
+        if rank == 0:
+            rec["logits"] = [x.float().cpu().numpy() for x in logits]
+        del params, caches, local, logits, out_
+        gc.collect()
+        torch.cuda.empty_cache()     # the next run's ranks share the card
+        rec["s"] = time.perf_counter() - t_run
+        out[tag] = rec
+    return out
 
 
-def m_unsharded(dtype: str, units: int, seed: int) -> dict:
-    """Phase M's run on one process on cuda:0: ``init_params`` from the
+def m_unsharded(tag: str, seed: int) -> dict:
+    """Run ``tag`` on one process on cuda:0: ``init_params`` from the
     same draw, no rules, the same caches, prompts and fed tokens, each
-    step timed."""
+    step timed, every MoE routing watched."""
     import torch
+    from repro_torch.kernels import ops
     from repro_torch.launch.steps import build_prefill_step, build_serve_step
     from repro_torch.models import init_params
 
-    cfg = m_config(dtype, units)
-    dev = torch.device("cuda", 0)
+    cfg = m_config(tag)
+    dev = torch.device("cuda:0")
     torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
                          str(dev))
-    caches = m_caches(cfg, dev, seed)
-    prompts, fed = m_tokens(cfg, seed)
+    caches = m_caches(tag, cfg, dev, seed)
+    prompts, fed = m_tokens(tag, cfg, seed)
     prefill, serve = build_prefill_step(cfg), build_serve_step(cfg)
-    out, t = _m_timed(lambda: prefill(params, {
-        "tokens": torch.from_numpy(prompts).to(dev)}))
-    logits, ms = [out.float().cpu().numpy()], [t]
-    for tok in fed:
-        (out, caches), t = _m_timed(lambda: serve(params, caches, {
-            "tokens": torch.from_numpy(tok).to(dev)}))
-        logits.append(out.float().cpu().numpy())
-        ms.append(t)
+    with RouteWatch() as routes:
+        out, t = _m_timed(lambda: prefill(params, {
+            "tokens": torch.from_numpy(prompts).to(dev)}))
+        logits, ms = [out.float().cpu().numpy()], [t]
+        for tok in fed:
+            (out, caches), t = _m_timed(lambda: serve(params, caches, {
+                "tokens": torch.from_numpy(tok).to(dev)}))
+            logits.append(out.float().cpu().numpy())
+            ms.append(t)
     rec = {"logits": logits, "prefill_ms": ms[0], "decode_ms": ms[1:],
            "peak_device_bytes": torch.cuda.max_memory_allocated(),
            "param_bytes": sum(p.numel() * p.element_size()
-                              for p in params.parameters())}
+                              for p in params.parameters()),
+           "launches": dict(ops.launches), "routes": routes.host()}
     del params, caches
+    gc.collect()
+    torch.cuda.empty_cache()
     return rec
 
 
-def m_readings(tag: str, seed: int, layout: tuple) -> dict:
-    """One run of phase M (``tag`` in M_RUNS): the four ranks, then the
-    unsharded run once they have exited; the gap of each step's logits
-    over the unsharded logits' largest magnitude, both runs' times, the
-    ranks' parameter bytes beside the plan's (``launch/dryrun.plan_cell``
-    on a (2, 2) mesh of ``meta`` positions, same config and cell) and
-    their peak device bytes."""
-    import torch
+def moe_layers(cfg) -> int:
+    """The MoE layers one pass of ``cfg``'s stack runs."""
+    return sum(st.layers * (1 if st in cfg.prologue else cfg.n_units)
+               for st in cfg.prologue + cfg.pattern
+               if st.block.endswith("moe"))
+
+
+def m_routing(ranks: list, one: dict, n_prefill: int) -> dict:
+    """The sharded run's routing beside the unsharded run's: the tokens'
+    (layer, token) positions whose top-k experts differ, and the
+    assignments each side dropped at capacity, prefill and decode apart
+    (the first ``n_prefill`` MoE calls are the prefill's, one a MoE
+    layer, and so a decode step's); for each MoE layer, the positions
+    that differ and the unsharded run's largest margin between the k-th
+    and the next expert's probability among them (an earlier layer's
+    flip moves a later layer's input by a whole expert's output), beside
+    the median margin of every position; and the MoE calls (of those of
+    a run) whose rows moved to the expert weights on the sharded side.
+    The sharded side's tokens are the data ranks' in order, read on model
+    rank 0."""
+    lead = sorted((r for r in ranks if r["coordinate"][1] == 0),
+                  key=lambda r: r["coordinate"][0])
+    calls = [tuple(np.concatenate([r["routes"][c][j] for r in lead])
+                   for j in (0, 1)) for c in range(len(one["routes"]))]
+    out = {"positions": 0, "routing_differs": 0}
+    for part, sl in (("prefill", slice(0, n_prefill)),
+                     ("decode", slice(n_prefill, None))):
+        out[f"dropped_sharded_{part}"] = int(sum(
+            (~k).sum() for _, k in calls[sl]))
+        out[f"dropped_unsharded_{part}"] = int(sum(
+            (~r[1]).sum() for r in one["routes"][sl]))
+    flips = [[] for _ in range(n_prefill)]
+    for c, ((a, _), (b, _, margin)) in enumerate(zip(calls, one["routes"])):
+        if a.shape != b.shape:
+            fail(f"routing of {a.shape} tokens sharded, {b.shape} unsharded")
+        differs = (a != b).any(axis=-1)
+        out["positions"] += a.shape[0]
+        out["routing_differs"] += int(differs.sum())
+        flips[c % n_prefill].append(margin[differs])
+    flips = [np.concatenate(f) for f in flips]
+    out["routing_differs_by_layer"] = [int(f.size) for f in flips]
+    out["flip_margin_max_by_layer"] = [float(f.max()) if f.size else None
+                                       for f in flips]
+    out["margin_median"] = float(np.median(np.concatenate(
+        [r[2] for r in one["routes"]])))
+    out["assignments"] = int(sum(r[1].size for r in one["routes"]))
+    out["moe_calls"] = len(one["routes"])
+    out["by_tokens"] = sorted({c for r in ranks for c in r["by_tokens"]})
+    return out
+
+
+def m_readings(tag: str, ranks: list, one: dict, layout: tuple) -> dict:
+    """One run of phase M or N (``tag``): the four ranks' records and the
+    unsharded run's; the gap of each step's logits over the unsharded
+    logits' largest magnitude, both runs' times, the ranks' parameter
+    bytes beside the plan's (``launch/dryrun.plan_cell`` on a (2, 2) mesh
+    of ``meta`` positions, same config and cell), their peak device
+    bytes and, for a MoE config, the routing on both sides."""
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.core.mesh import make_mesh
-    from repro_torch.launch import dryrun, spmd
+    from repro_torch.launch import dryrun
 
-    dtype, units = M_RUNS[tag]
+    run, cfg = m_run(tag), m_config(tag)
     backend, devices = layout
     t0 = time.perf_counter()
-    ranks = spmd.run(m_rank, devices, backend, (dtype, units, seed))
-    sharded_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    one = m_unsharded(dtype, units, seed)
-    unsharded_s = time.perf_counter() - t0
-    gc.collect()
-    torch.cuda.empty_cache()         # the next run's ranks share the card
     plan = dryrun.plan_cell(
-        m_config(dtype, units), ShapeSpec("m_decode", M_T, M_B, "decode"),
+        cfg, ShapeSpec(f"{tag}_decode", run["T"], run["B"], "decode"),
         make_mesh(M_MESH, M_AXES, ["meta"] * M_PROCS))
+    plan_s = time.perf_counter() - t0
     got, want = ranks[0]["logits"], one["logits"]
     gaps = []
     for g, w in zip(got, want):
@@ -3414,12 +3591,14 @@ def m_readings(tag: str, seed: int, layout: tuple) -> dict:
             fail(f"phase {tag}: sharded logits {g.shape}, finite "
                  f"{bool(np.isfinite(g).all())}; unsharded {w.shape}")
         gaps.append(float(np.abs(g - w).max() / np.abs(w).max()))
-    return {
-        "arch": M_ARCH, "dtype": dtype, "units": units,
+    rec = {
+        "arch": run["arch"], "dtype": run["dtype"], "units": run["units"],
+        "layers": cfg.n_layers, "params": cfg.param_count(),
         "mesh": dict(zip(M_AXES, M_MESH)), "backend": backend,
         "devices": [str(d) for d in devices],
-        "batch": M_B, "prompt": M_S, "cache": M_T, "decode_from": M_POS,
-        "decode_steps": len(got) - 1,
+        "batch": run["B"], "prompt": run["S"], "cache": run["T"],
+        "decode_from": run["pos"], "decode_steps": len(got) - 1,
+        "repeated_prompt_rows": run["B"] // 2 if run["repeat"] else 0,
         "gap_prefill": gaps[0], "gap_decode": gaps[1:], "gap_max": max(gaps),
         "logit_scale": float(max(np.abs(w).max() for w in want)),
         "param_bytes_per_rank": [r["param_bytes"] for r in ranks],
@@ -3427,6 +3606,7 @@ def m_readings(tag: str, seed: int, layout: tuple) -> dict:
         "plan_argument_parts": plan["argument_parts"],
         "plan_collectives": plan["collectives"],
         "plan_collective_counts": plan.get("collective_counts"),
+        "plan_s": plan_s,
         "init_peak_device_bytes_per_rank": [r["init_peak_device_bytes"]
                                             for r in ranks],
         "serving_peak_device_bytes_per_rank": [
@@ -3440,38 +3620,65 @@ def m_readings(tag: str, seed: int, layout: tuple) -> dict:
         "unsharded_param_bytes": one["param_bytes"],
         "unsharded_peak_device_bytes": one["peak_device_bytes"],
         "launches": {k: sum(r["launches"].get(k, 0) for r in ranks)
+                     + one["launches"].get(k, 0)
                      for k in ranks[0]["launches"]},
-        "sharded_s": sharded_s, "unsharded_s": unsharded_s}
+        "sharded_s": max(r["s"] for r in ranks),
+        "unsharded_s": one["s"]}
+    if one["routes"]:
+        rec["moe"] = m_routing(ranks, one, moe_layers(cfg))
+    return rec
 
 
-def drive_sharded_serve(seed: int, card: str) -> dict:
-    """Phase M: M1 and M2 (M_RUNS) on ``spmd.card_layout(M_PROCS)``, each
-    held to its bound (M_TOL) and its ranks' parameter bytes to the
-    plan's."""
+def drive_sharded_serve(seed: int, card: str, tags=MN_RUNS) -> dict:
+    """Phases M and N: the runs ``tags`` on ``spmd.card_layout(M_PROCS)``,
+    all in one spawn of the ranks (their start-up paid once), then each
+    unsharded in this process; each held to its bound (M_TOL, N_TOL) and
+    its ranks' parameter bytes to the plan's; N2's and N3's routing to the
+    unsharded run's, N2's assignments dropped alike on both sides."""
     import torch
     from repro_torch.launch import spmd
 
     layout = spmd.card_layout(M_PROCS)
     n_cards = torch.cuda.device_count()
-    print(f"phase M: {M_PROCS} processes, backend {layout[0]}, "
+    print(f"phases M, N: {M_PROCS} processes, backend {layout[0]}, "
           f"{n_cards} cards, devices {[str(d) for d in layout[1]]}")
-    out = {"backend": layout[0], "cards": n_cards, "launches": {}}
-    for tag in M_RUNS:
+    t0 = time.perf_counter()
+    ranks = spmd.run(m_rank, layout[1], layout[0], (tuple(tags), seed))
+    spawn_s = time.perf_counter() - t0
+    out = {"backend": layout[0], "cards": n_cards, "spawn_s": spawn_s,
+           "launches": {}}
+    for tag in tags:
         t0 = time.perf_counter()
-        r = m_readings(tag, seed, layout)
-        r["s"] = time.perf_counter() - t0
-        r["tol"] = M_TOL[tag]
+        one = m_unsharded(tag, seed)
+        one["s"] = time.perf_counter() - t0
+        r = m_readings(tag, [x[tag] for x in ranks], one, layout)
+        r["s"] = r["sharded_s"] + r["unsharded_s"] + r["plan_s"]
+        tol = M_TOL[tag] if tag in M_TOL else N_TOL[tag]
+        r["tol"] = tol
         print(json.dumps({"phase": tag, **r, "card": card}))
-        if r["gap_max"] > M_TOL[tag]:
+        if r["gap_max"] > tol:
             fail(f"phase {tag}: sharded logits off the unsharded by "
-                 f"{r['gap_max']:.3g} of their scale, over {M_TOL[tag]:.3g}")
+                 f"{r['gap_max']:.3g} of their scale, over {tol:.3g}")
         want = r["plan_argument_parts"]["params"]
         if any(b != want for b in r["param_bytes_per_rank"]):
             fail(f"phase {tag}: ranks hold {r['param_bytes_per_rank']} "
                  f"parameter bytes, the plan {want} a position")
+        m = r.get("moe")
+        if tag in N_SAME_ROUTING and m["routing_differs"]:
+            fail(f"phase {tag}: routing {m}: the sharded run must route "
+                 "every token as the unsharded run")
+        if tag in N_REPEAT and (m["dropped_sharded_prefill"] !=
+                                m["dropped_unsharded_prefill"] or
+                                m["dropped_unsharded_prefill"] <= 0):
+            fail(f"phase {tag}: routing {m}: the sharded run must drop "
+                 "as many assignments as the unsharded run, more than 0")
+        phase = tag[0]
         out[tag] = {k: r[k] for k in ("gap_max", "s", "param_bytes_per_rank")}
+        if "moe" in r:
+            out[tag]["moe"] = r["moe"]
+        counts = out["launches"].setdefault(phase, {})
         for k, n in r["launches"].items():
-            out["launches"][k] = out["launches"].get(k, 0) + n
+            counts[k] = counts.get(k, 0) + n
     return out
 
 
@@ -4351,16 +4558,20 @@ def main() -> int:
                       "s": time.perf_counter() - t0, "card": card}))
     gc.collect()
     torch.cuda.empty_cache()
-    ops.reset_launches()                 # phase M: the sharded serve step
+    ops.reset_launches()             # phases M and N: the sharded serve step
     t0 = time.perf_counter()
-    rec_m = drive_sharded_serve(args.seed, card)
-    print(json.dumps({"phase": "M", "backend": rec_m["backend"],
-                      "cards": rec_m["cards"], "M1": rec_m["M1"],
-                      "M2": rec_m["M2"], "s": time.perf_counter() - t0,
-                      "card": card}))
+    rec_mn = drive_sharded_serve(args.seed, card)
+    for phase, tags in (("M", M_RUNS), ("N", N_RUNS)):
+        print(json.dumps({"phase": phase, "backend": rec_mn["backend"],
+                          "cards": rec_mn["cards"],
+                          **{t: rec_mn[t] for t in tags},
+                          "s": sum(rec_mn[t]["s"] for t in tags),
+                          "card": card}))
+    print(f"phases M and N {time.perf_counter() - t0:.1f}s (spawn "
+          f"{rec_mn['spawn_s']:.1f}s)")
     for k in checks:
-        k["launches_m"] = ops.launches[k["name"]] + \
-            rec_m["launches"].get(k["name"], 0)
+        k["launches_m"] = rec_mn["launches"]["M"].get(k["name"], 0)
+        k["launches_n"] = rec_mn["launches"]["N"].get(k["name"], 0)
     for k in checks:
         other = {tag: k[tag]["mismatches"]
                  for tag in ("wide_check", "shard_shape", "level_model_shape",

@@ -25,8 +25,10 @@ the reference's keys; what each means here is in ``launch/README.md``:
   accessed`` (operand and result bytes an aten op) of the whole job,
   divided evenly over the positions (``cost_split``);
 - ``collectives``: the parameter and gradient traffic the specs imply
-  (``collectives_scope``); for a decode or prefill cell of an
-  ``attn_mlp`` stack, every collective of the step run sharded on
+  (``collectives_scope``); for a decode or prefill cell of a stack
+  whose blocks all run sharded (``sharding.SHARDED_BLOCKS``: the
+  ``attn_mlp``, ``attn_moe``, ``mla_dense`` and ``mla_moe`` stacks),
+  every collective of the step run sharded on
   ``DTensor``s at one position of a fake process group
   (:func:`sharded_plan`), which also gives its ``temp_bytes``.
 

@@ -32,8 +32,12 @@ mesh.  The port has two kinds of mesh:
   ``launch/inputs.shard_caches``).  Two ops are written out by hand,
   where DTensor's own strategy gives a wrong result: :func:`index_copy_`,
   a cache row written in place on the rank that holds its slot, and
-  :func:`embedding`, the lookup in a split table.  Only ``attn_mlp``
-  stacks run sharded so far (:func:`require_block`).
+  :func:`embedding`, the lookup in a split table.  The MoE FFN's
+  dispatch and combine run by hand on each rank's pieces
+  (``models/moe``) through the collectives here: :func:`gather_ranks`,
+  :func:`sum_ranks` and :func:`all_to_all`, torch's functional
+  collectives.  The ``attn_mlp``, ``attn_moe``, ``mla_dense`` and
+  ``mla_moe`` stacks run sharded so far (:func:`require_block`).
 """
 
 from __future__ import annotations
@@ -51,11 +55,14 @@ __all__ = ["P", "ShardingRules", "DEFAULT_RULES", "Sharded", "rules_ctx",
            "current_rules", "constraint", "param_constraint",
            "logical_to_spec", "param_sharding", "shard_shape", "placements",
            "distribute", "local_shard", "index_copy_", "embedding",
-           "require_block", "require_blocks", "SHARDED_BLOCKS"]
+           "require_block", "require_blocks", "SHARDED_BLOCKS",
+           "process_mesh", "split_axes", "whole_over", "piece_span",
+           "rank_index", "gather_ranks", "sum_ranks", "all_to_all",
+           "from_pieces"]
 
 # the blocks that run on a ProcessMesh (the rest are ROADMAP Queue 1's
 # later slices of item 8a)
-SHARDED_BLOCKS = ("attn_mlp",)
+SHARDED_BLOCKS = ("attn_mlp", "attn_moe", "mla_dense", "mla_moe")
 
 # logical axis -> mesh axis (or None = replicated).  "batch" maps to the
 # combined (pod, data) axes; "embed"/"heads"/"mlp"/"vocab"/"experts" are the
@@ -274,10 +281,7 @@ def index_copy_(dst, dim: int, index, src):
 
     if not isinstance(dst, DTensor):
         return dst.index_copy_(dim, index, src)
-    mesh = getattr(_tls, "mesh", None)
-    if not isinstance(mesh, ProcessMesh):
-        raise TypeError("a DTensor write outside rules_ctx of its "
-                        "process mesh")
+    mesh = process_mesh()
     want = tuple(Replicate() if p.is_shard(dim) else p
                  for p in dst.placements)
     if any(p.is_partial() for p in want):
@@ -311,10 +315,7 @@ def embedding(tokens, table):
 
     if not isinstance(table, DTensor):
         return F.embedding(tokens, table)
-    mesh = getattr(_tls, "mesh", None)
-    if not isinstance(mesh, ProcessMesh):
-        raise TypeError("a DTensor lookup outside rules_ctx of its "
-                        "process mesh")
+    mesh = process_mesh()
     if any(p.is_partial() for p in (*table.placements, *tokens.placements)):
         raise ValueError(f"an embedding of tokens laid out as "
                          f"{tokens.placements} in a table laid out as "
@@ -334,6 +335,110 @@ def embedding(tokens, table):
     shape = tuple(tokens.shape) + (table.shape[1],)
     return DTensor.from_local(rows, mesh.device_mesh, places,
                               run_check=False, shape=shape,
+                              stride=_contiguous(shape))
+
+
+def process_mesh() -> ProcessMesh:
+    """The process mesh of the current ``rules_ctx``; TypeError outside
+    one."""
+    mesh = getattr(_tls, "mesh", None)
+    if not isinstance(mesh, ProcessMesh):
+        raise TypeError("a DTensor op outside rules_ctx of its process "
+                        "mesh")
+    return mesh
+
+
+def split_axes(t, dim: int) -> tuple:
+    """The mesh axes (indices, in mesh order) that split dimension ``dim``
+    of the DTensor ``t``."""
+    return tuple(i for i, p in enumerate(t.placements) if p.is_shard(dim))
+
+
+def whole_over(t, dims: tuple):
+    """The DTensor ``t`` redistributed so that each dimension in ``dims``
+    is whole and no partial sum is left; the splits of the other
+    dimensions stay.  A parameter's FSDP split (its "embed" dimension) is
+    gathered so, as the reference gathers it for each forward."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = process_mesh()
+    want = tuple(Replicate() if p.is_partial() or any(
+        p.is_shard(d) for d in dims) else p for p in t.placements)
+    if tuple(t.placements) != want:
+        t = t.redistribute(mesh.device_mesh, want)
+    return t
+
+
+def piece_span(t, dim: int) -> tuple:
+    """(start, length) of this rank's piece of dimension ``dim`` of the
+    DTensor ``t``."""
+    return _offsets(tuple(t.shape), tuple(t.placements),
+                    process_mesh())[dim]
+
+
+def rank_index(axes: tuple) -> tuple:
+    """(index, count): this rank's position along the mesh axes ``axes``
+    (indices) taken together, major to minor in mesh order, and their
+    number of positions."""
+    mesh = process_mesh()
+    i, n = 0, 1
+    for a in axes:
+        i = i * mesh.shape[a] + mesh.coordinate[a]
+        n *= mesh.shape[a]
+    return i, n
+
+
+def gather_ranks(local: torch.Tensor, axes: tuple) -> torch.Tensor:
+    """Every rank's ``local`` along the mesh axes ``axes`` (indices),
+    stacked in :func:`rank_index` order: a plain (n, *local.shape) tensor,
+    the same on every rank of those axes.  An all-gather of torch's
+    functional collectives (so ``spmd.stage_through_host`` stages it and
+    ``plan.ShardMeter`` counts it); ``local`` must be the same on the
+    other axes."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    places = tuple(Shard(0) if i in axes else Replicate()
+                   for i in range(len(process_mesh().shape)))
+    shape = (rank_index(axes)[1],) + tuple(local.shape)
+    return from_pieces(local[None], places, shape).full_tensor()
+
+
+def sum_ranks(local: torch.Tensor, axes: tuple) -> torch.Tensor:
+    """The sum of every rank's ``local`` over the mesh axes ``axes``
+    (indices), a plain tensor: an all-reduce of the functional
+    collectives, as :func:`gather_ranks`."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    places = tuple(Partial() if i in axes else Replicate()
+                   for i in range(len(process_mesh().shape)))
+    return from_pieces(local, places, tuple(local.shape)).full_tensor()
+
+
+def all_to_all(local: torch.Tensor, axis: int) -> torch.Tensor:
+    """Dimension 0 of ``local`` cut into as many equal chunks as the mesh
+    axis ``axis`` (an index) has positions, chunk ``i`` sent to position
+    ``i``; returns the chunks this rank received, in position order, as
+    one tensor of ``local``'s shape.  Torch's functional all-to-all (so
+    ``spmd.stage_through_host`` stages it and ``plan.ShardMeter`` counts
+    it)."""
+    from torch.distributed import _functional_collectives as funcol
+
+    mesh = process_mesh()
+    if local.shape[0] % mesh.shape[axis]:
+        raise ValueError(f"{local.shape[0]} rows in {mesh.shape[axis]} "
+                         "chunks")
+    out = funcol.all_to_all_single(local.contiguous(), None, None,
+                                   (mesh.device_mesh, axis))
+    return funcol.wait_tensor(out)
+
+
+def from_pieces(local: torch.Tensor, places: tuple, shape: tuple):
+    """The DTensor of global ``shape`` whose piece on this rank is
+    ``local``, laid out by ``places``."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local, process_mesh().device_mesh, places,
+                              run_check=False, shape=tuple(shape),
                               stride=_contiguous(shape))
 
 

@@ -266,8 +266,8 @@ def mla_decode(x, p, cfg, cache):
     c_new = rms_norm(kv[..., :r], p["kv_norm"], cfg.norm_eps)
     k_rope_new = rope(kv[..., None, r:], posb, cfg.rope_theta)[:, :, 0, :]
     idx = torch.clamp(pos, max=T - 1).reshape(1).long()
-    c_kv = cache["c_kv"].index_copy_(1, idx, c_new)
-    kr = cache["k_rope"].index_copy_(1, idx, k_rope_new)
+    c_kv = index_copy_(cache["c_kv"], 1, idx, c_new)
+    kr = index_copy_(cache["k_rope"], 1, idx, k_rope_new)
     # absorbed attention: score = q_nope . (c @ Wb_k) + q_rope . k_rope
     wkv_b = p["wkv_b"].reshape(r, H, nope + vd)
     wb_k, wb_v = wkv_b[..., :nope], wkv_b[..., nope:]

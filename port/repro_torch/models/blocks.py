@@ -108,20 +108,20 @@ class AttnMoe(AttnMlp):
     @staticmethod
     def forward(x, p, cfg, aux):
         h = apply_norm(x, p["ln1"], cfg)
-        x = x + gqa_attention(h, p["attn"], cfg, window=cfg.window)
+        x = x + _whole(gqa_attention(h, p["attn"], cfg, window=cfg.window))
         h = apply_norm(x, p["ln2"], cfg)
         y, aux_l = moe_ffn(h, p["moe"], cfg, cfg.act)
-        return x + y, aux_l
+        return x + _whole(y), aux_l
 
     @staticmethod
     def decode(x, p, cfg, cache, aux):
         h = apply_norm(x, p["ln1"], cfg)
         a, cache = gqa_decode(h, p["attn"], cfg, cache, window=cfg.window)
-        x = x + a
+        x = x + _whole(a)
         h = apply_norm(x, p["ln2"], cfg)
         y, _ = moe_ffn(h, p["moe"], cfg, cfg.act, capacity_factor=2.0,
                        with_aux=False)
-        return x + y, cache
+        return x + _whole(y), cache
 
 
 # --------------------------------------------------------------- mla_moe
@@ -139,20 +139,20 @@ class MlaMoe:
     @staticmethod
     def forward(x, p, cfg, aux):
         h = apply_norm(x, p["ln1"], cfg)
-        x = x + mla_attention(h, p["attn"], cfg)
+        x = x + _whole(mla_attention(h, p["attn"], cfg))
         h = apply_norm(x, p["ln2"], cfg)
         y, aux_l = moe_ffn(h, p["moe"], cfg, cfg.act)
-        return x + y, aux_l
+        return x + _whole(y), aux_l
 
     @staticmethod
     def decode(x, p, cfg, cache, aux):
         h = apply_norm(x, p["ln1"], cfg)
         a, cache = mla_decode(h, p["attn"], cfg, cache)
-        x = x + a
+        x = x + _whole(a)
         h = apply_norm(x, p["ln2"], cfg)
         y, _ = moe_ffn(h, p["moe"], cfg, cfg.act, capacity_factor=2.0,
                        with_aux=False)
-        return x + y, cache
+        return x + _whole(y), cache
 
     @staticmethod
     def init_cache(cfg, B, T, dtype, device):
@@ -178,7 +178,7 @@ class MlaDense(MlaMoe):
     @staticmethod
     def forward(x, p, cfg, aux):
         h = apply_norm(x, p["ln1"], cfg)
-        x = x + mla_attention(h, p["attn"], cfg)
+        x = x + _whole(mla_attention(h, p["attn"], cfg))
         h = apply_norm(x, p["ln2"], cfg)
         return x + glu_mlp(h, p["mlp"], cfg.act), 0.0
 
@@ -186,7 +186,7 @@ class MlaDense(MlaMoe):
     def decode(x, p, cfg, cache, aux):
         h = apply_norm(x, p["ln1"], cfg)
         a, cache = mla_decode(h, p["attn"], cfg, cache)
-        x = x + a
+        x = x + _whole(a)
         h = apply_norm(x, p["ln2"], cfg)
         return x + glu_mlp(h, p["mlp"], cfg.act), cache
 

@@ -1,26 +1,36 @@
 #!/usr/bin/env python
-"""Phase M1's logit comparison, for the sound port and for controls that
-carry a deliberate fault in the sharded run: the readings that
-chip_smoke.py's M_TOL["M1"] is set between.
+"""Phase M1's or N1's logit comparison, for the sound port and for
+controls that carry a deliberate fault in the sharded run: the readings
+that chip_smoke.py's M_TOL["M1"] and N_TOL["N1"] are set between.
 
-    python port/scripts/shard_tol_control.py
+    python port/scripts/shard_tol_control.py [--tag M1|N1]
 
-Needs a CUDA card.  For each of SEEDS it runs phase M1 as
-``chip_smoke.py`` does (command-r-plus-104b at full width, 4 units, bf16,
-on a (data 2, model 2) mesh of four processes under DEFAULT_RULES) and
-the same unsharded, and reads the largest gap of each step's logits over
-the unsharded logits' largest magnitude.  Each control patches one fault
-into the sharded run's processes only, on seed 0:
+Needs a CUDA card.  For each of SEEDS it runs the phase as
+``chip_smoke.py`` does (M1: command-r-plus-104b at full width, 4 units;
+N1: deepseek-v2-lite-16b at full width, its dense layer and 3 MoE units;
+both bf16, on a (data 2, model 2) mesh of four processes under
+DEFAULT_RULES) and the same unsharded, and reads the largest gap of each
+step's logits over the unsharded logits' largest magnitude, and, for N1,
+the (layer, token) positions whose top-k experts differ and the
+assignments each side dropped.  Each control patches one fault into the
+sharded run's processes only, on seed 0:
 
-  norm_bf16  LayerNorm computed in bf16, not in f32
-  slot_late  each decode step's k and v written one cache slot late (the
-             slot an offset error in the split cache write would pick)
+  norm_bf16       (M1) LayerNorm computed in bf16, not in f32
+  slot_late       each decode step's cache row (k and v; MLA's c_kv and
+                  k_rope) written one slot late (the slot an offset error
+                  in the split cache write would pick)
+  no_offset       (N1) the MoE dispatch ranks each data rank's slots from
+                  0, without the earlier data ranks' counts: the second
+                  data rank keeps assignments the reference drops
+  shared_dropped  (N1) the second of deepseek's two shared experts left
+                  out (its rows of the shared w2 zeroed)
 
 Prints one JSON line a reading, then the card's name and power limit.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
@@ -34,7 +44,8 @@ import chip_smoke  # noqa: E402
 import numpy as np  # noqa: E402
 
 SEEDS = (0, 1, 2)
-FAULTS = ("norm_bf16", "slot_late")
+FAULTS = {"M1": ("norm_bf16", "slot_late"),
+          "N1": ("no_offset", "shared_dropped", "slot_late")}
 
 
 def _layer_norm_bf16(x, scale, eps):
@@ -44,9 +55,9 @@ def _layer_norm_bf16(x, scale, eps):
     return (x - mu) * torch.rsqrt(var + eps) * scale.to(x.dtype)
 
 
-def faulty_rank(rank, device, fault, *args):
-    """``chip_smoke.m_rank`` with ``fault`` patched into this process."""
-    from repro_torch.models import attention, layers
+def _patch(fault) -> None:
+    """``fault`` patched into this process's model code."""
+    from repro_torch.models import attention, layers, moe
 
     if fault == "norm_bf16":
         layers.layer_norm = _layer_norm_bf16
@@ -54,9 +65,29 @@ def faulty_rank(rank, device, fault, *args):
         write = attention.index_copy_
         attention.index_copy_ = (
             lambda dst, dim, index, src: write(dst, dim, index + 1, src))
+    elif fault == "no_offset":
+        route = moe.route
+        moe.route = (lambda xg, router, K, C, before=None:
+                     route(xg, router, K, C, None))
+    elif fault == "shared_dropped":
+        import torch
+        glu = moe.glu_mlp
+
+        def one_shared(x, p, act):
+            n = p["w2"].shape[0]
+            keep = (torch.arange(n, device=x.device) < n // 2)[:, None]
+            return glu(x, {**p, "w2": p["w2"] * keep.to(p["w2"].dtype)},
+                       act)
+        moe.glu_mlp = one_shared
     elif fault is not None:
         raise ValueError(fault)
-    return chip_smoke.m_rank(rank, device, *args)
+
+
+def faulty_rank(rank, device, fault, tag, seed):
+    """``chip_smoke.m_rank`` of run ``tag`` with ``fault`` patched into
+    this process."""
+    _patch(fault)
+    return chip_smoke.m_rank(rank, device, (tag,), seed)[tag]
 
 
 def gap(got: list, want: list) -> float:
@@ -68,20 +99,26 @@ def main() -> int:
     import torch
     from repro_torch.launch import spmd
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tag", choices=sorted(FAULTS), default="M1")
+    tag = ap.parse_args().tag
     if not torch.cuda.is_available():
         print("shard_tol_control: no CUDA device", file=sys.stderr)
         return 1
-    dtype, units = chip_smoke.M_RUNS["M1"]
     backend, devices = spmd.card_layout(chip_smoke.M_PROCS)
+    n_moe = chip_smoke.moe_layers(chip_smoke.m_config(tag))
     for seed in SEEDS:
-        want = chip_smoke.m_unsharded(dtype, units, seed)["logits"]
+        one = chip_smoke.m_unsharded(tag, seed)
         torch.cuda.empty_cache()
-        for fault in (None,) + (FAULTS if seed == 0 else ()):
-            got = spmd.run(faulty_rank, devices, backend,
-                           (fault, dtype, units, seed))[0]["logits"]
-            print(json.dumps({"seed": seed, "fault": fault,
-                              "err_frac": gap(got, want),
-                              "backend": backend}), flush=True)
+        for fault in (None,) + (FAULTS[tag] if seed == 0 else ()):
+            ranks = spmd.run(faulty_rank, devices, backend,
+                             (fault, tag, seed))
+            rec = {"tag": tag, "seed": seed, "fault": fault,
+                   "err_frac": gap(ranks[0]["logits"], one["logits"]),
+                   "backend": backend}
+            if one["routes"]:
+                rec["moe"] = chip_smoke.m_routing(ranks, one, n_moe)
+            print(json.dumps(rec), flush=True)
     print(chip_smoke.card_line())
     return 0
 

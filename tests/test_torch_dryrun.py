@@ -33,7 +33,8 @@ from repro_torch.launch import dryrun, roofline  # noqa: E402
 from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
 from repro_torch.launch.plan import (COLLECTIVES, StepMeter,  # noqa: E402
                                      param_collectives)
-from repro_torch.launch.sharding import P, Sharded  # noqa: E402
+from repro_torch.launch.sharding import (SHARDED_BLOCKS, P,  # noqa: E402
+                                         Sharded)
 
 # full-size cells whose plans are quick on the CPU: (arch, shape, units,
 # multi_pod); argument bytes held to the reference's shard shapes
@@ -183,7 +184,7 @@ def test_run_cell_plans_every_smoke_config_on_meta(monkeypatch, arch, shape):
     assert set(r["collectives"]) == set(COLLECTIVES)
     c = r["collectives"]
     sharded = shape != "train_4k" and all(
-        st.block == "attn_mlp" for st in get_smoke_config(arch).pattern
+        st.block in SHARDED_BLOCKS for st in get_smoke_config(arch).pattern
         + get_smoke_config(arch).prologue)
     if shape == "train_4k":    # every gradient is reduced over the batch
         assert c["reduce-scatter"] + c["all-reduce"] > 0

@@ -129,6 +129,24 @@ def test_sharded_serve_ranks_import_no_jax_or_repro():
     assert out.stdout.strip() == ""
 
 
+def test_sharded_moe_ranks_import_no_jax_or_repro():
+    """The same for ``test_torch_sharded_moe.py``'s ranks, which import
+    that module and, through it, ``test_torch_sharded_serve``."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {os.path.join(REPO, "tests")!r})
+        import test_torch_sharded_moe
+        from repro_torch.launch import spmd
+        bad = sorted(k for k in sys.modules
+                     if k.split(".")[0] in {sorted(FORBIDDEN)!r})
+        print(",".join(bad))
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120, check=True)
+    assert out.stdout.strip() == ""
+
+
 def test_default_store_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -30,6 +30,9 @@ F32 = 4
 # (data 2, model 2) mesh with the parameters' FSDP split off
 B, T = 4, 32
 LAYER = {"n_units": 1, "qkv_bias": False}
+# the one-layer MoE decode: mixtral's smoke widths (D 128, 4 experts of
+# F 256, top-2), one unit, the same B and T, the parameters' FSDP split on
+MOE_LAYER = {"n_units": 1}
 
 
 def plans() -> dict:
@@ -65,11 +68,25 @@ def plans() -> dict:
     out["layer"] = dryrun.sharded_plan(
         cfg, ShapeSpec("layer", T, B, "decode"),
         make_mesh((2, 2), ("data", "model"), ["meta"] * 4), rules)
+    cfg = dataclasses.replace(get_smoke_config("mixtral-8x22b"), **MOE_LAYER)
+    out["moe_layer"] = dryrun.sharded_plan(
+        cfg, ShapeSpec("layer", T, B, "decode"),
+        make_mesh((2, 2), ("data", "model"), ["meta"] * 4),
+        ShardingRules(DEFAULT_RULES))
+    from repro_torch.configs import get_config
+    from repro_torch.launch.inputs import param_specs_sharded
+    prod = make_mesh((16, 16), ("data", "model"), ["meta"] * 256)
+    moe = param_specs_sharded(get_config("mixtral-8x22b"), prod,
+                              ShardingRules(DEFAULT_RULES))[
+        "stages"]["s0_attn_moe"]["moe"]
+    out["mixtral_specs"] = {k: list(moe[k].spec) for k in ("w1", "w2")}
     out["cells"] = {}
     for arch, shape, units in (("qwen2-0.5b", "decode_32k", 1),
                                ("qwen2-0.5b", "prefill_32k", 1),
                                ("qwen2-0.5b", "train_4k", 1),
-                               ("deepseek-v2-lite-16b", "decode_32k", 1)):
+                               ("deepseek-v2-lite-16b", "decode_32k", 1),
+                               ("mixtral-8x22b", "decode_32k", 1),
+                               ("hymba-1.5b", "decode_32k", 1)):
         r = dryrun.run_cell(arch, shape, units=units)
         out["cells"][f"{arch}|{shape}"] = {
             k: r.get(k) for k in ("collectives", "collectives_scope",
@@ -142,8 +159,58 @@ def test_serving_cells_report_every_collective(planned, shape):
     assert sum(c["argument_parts"].values()) == mem["argument_bytes"]
 
 
+def test_one_layer_moe_decode_collectives_by_hand(planned):
+    """One attn_moe layer's decode step, position (0, 0), under
+    DEFAULT_RULES: D 128, 4 experts of F 256 (two a model position), top
+    2, b = B / 2 rows a data position, the weights' "embed" split over
+    "data".  The dispatch group is all B tokens (capacity C 8), spanning
+    both data ranks, and its rows move to the experts' weights: two
+    all-to-alls of (2 ranks, 2 experts, C, D / 2) rows, there and back.
+    Five all-reduces: the two partial products h1 and h3 over "data" (1
+    group, 2 experts, C, F), the experts' partial sum over "model" (b
+    rows of D), and, as DTensor lays out the embedding and the attention
+    output, two of B rows of D / 2 (their "embed" split over "data").
+    The all-gathers are DTensor's (the attention's weights, the router,
+    the rank offsets' counts) and never an expert weight's FSDP piece."""
+    D, E, Fe, C = 128, 4, 256, 8
+    El, b = E // 2, B // 2
+    layer = planned["moe_layer"]
+    got = layer["collectives"]
+    assert got["all-to-all"] == 2 * 2 * El * C * (D // 2) * F32
+    assert got["all-reduce"] == (2 * El * C * Fe + b * D
+                                 + 2 * B * (D // 2)) * F32
+    assert layer["counts"]["all-to-all"] == 2
+    assert layer["counts"]["all-reduce"] == 5
+    assert 0 < got["all-gather"] < El * D * Fe * F32
+    assert got["reduce-scatter"] == got["collective-permute"] == 0
+
+
+def test_mixtral_experts_whole_mlp_on_model(planned):
+    """On the (16, 16) mesh mixtral's 8 experts do not divide "model":
+    they stay whole, and the per-expert "mlp" dimension takes it."""
+    assert planned["mixtral_specs"] == {"w1": [None, None, "data", "model"],
+                                        "w2": [None, None, "model", "data"]}
+
+
+@pytest.mark.parametrize("cell", ["deepseek-v2-lite-16b|decode_32k",
+                                  "mixtral-8x22b|decode_32k"])
+def test_moe_serving_cells_report_every_collective(planned, cell):
+    """The MoE and MLA decode cells are planned on DTensors, the
+    all-to-alls of the experts' dispatch rows counted."""
+    c = planned["cells"][cell]
+    assert c["collectives_scope"] == "all (DTensor placements)"
+    assert c["temp_scope"] == "one position's shard (DTensor placements)"
+    assert c["collective_counts"]["all-to-all"] > 0
+    assert c["collectives"]["all-to-all"] > 0
+    assert all((c["collective_counts"][k] > 0) == (v > 0)
+               for k, v in c["collectives"].items())
+    mem = c["memory"]
+    assert mem["peak_bytes"] == (mem["argument_bytes"] + mem["temp_bytes"]
+                                 + mem["output_bytes"] - mem["alias_bytes"])
+
+
 @pytest.mark.parametrize("cell", ["qwen2-0.5b|train_4k",
-                                  "deepseek-v2-lite-16b|decode_32k"])
+                                  "hymba-1.5b|decode_32k"])
 def test_other_cells_keep_the_parameter_count(planned, cell):
     c = planned["cells"][cell]
     assert c["collectives_scope"] == "parameters and gradients"
