@@ -205,9 +205,24 @@
         positions that differ, and which MoE calls moved the tokens'
         rows to the expert weights.  N2 and N3 (f32) must route every
         token alike; N2 must drop as many on both sides, more than 0.
-        Counts are zeroed just before M and read just after N
-        (``launches_m``, ``launches_n``; the model path runs none of the
-        five kernels).
+     O  the sharded serve step of the recurrent and cross-attention
+        blocks, on M's mesh, launcher and steps (its ranks in the same
+        spawn, after N's): O1 hymba-1.5b at full width in bf16, 2 of its
+        32 ``hybrid`` layers (attention and Mamba heads side by side; its
+        window ring of 1024 split over "model"); O2 hymba in f32, one
+        layer; O3 xlstm-1.3b at full width in f32, one unit (7 ``mlstm``,
+        1 ``slstm``; the mLSTM state C split on its hd, 1024 = T, as the
+        reference's cache rule says); O4 llama-3.2-vision-11b at full
+        width in f32, one unit (4 ``attn_mlp``, 1 ``cross_attn_mlp``),
+        its gates at 0.5 and 1600 bf16 image embeddings a row drawn from
+        ``--seed``, split over the batch.  Each as M: prefill 8 x 128, 8
+        decode steps on from 508 written slots of 1024 (every recurrent
+        state drawn from ``--seed`` too), within O_TOL of the unsharded
+        run, each rank's parameter bytes the plan's.
+        Counts are zeroed just before M and read just after O
+        (``launches_m``, ``launches_n``, ``launches_o``); the model path
+        runs none of the five kernels, and a launch there fails the
+        run.
    After the timed batches of C, D, E and G, 4 of the phase's batches
    replay through its dispatch half (``BourbonStore.dispatch_get`` in C,
    ``ShardedStore.dispatch_get`` in D and G, and in E shard 0's
@@ -3275,17 +3290,44 @@ N_SAME_ROUTING = ("N2", "N3")
 # route alike, past the capacity (320) of the 1024-token group, so
 # assignments are dropped, on the second data rank's tokens
 N_REPEAT = ("N2",)
-MN_RUNS = tuple(M_RUNS) + tuple(N_RUNS)
+
+# phase O: the recurrent and cross-attention blocks on M's mesh, launcher
+# and steps, with M's and N's shapes
+O_ARCH = {"O1": "hymba-1.5b", "O2": "hymba-1.5b", "O3": "xlstm-1.3b",
+          "O4": "llama-3.2-vision-11b"}
+O_B, O_S, O_T, O_STEPS = 8, 128, 1024, 8
+O_POS = O_T // 2 - O_STEPS // 2      # hymba's ring (window 1024) split
+# (dtype, pattern units): O1 2 of hymba's 32 layers in bf16; O2 one in
+# f32; O3 one of xlstm's 6 units (7 mLSTM and 1 sLSTM) in f32, whose
+# mLSTM state C splits on its hd (1024 = T) as the reference's cache rule
+# says; O4 one of llama-3.2-vision's 8 units (4 attn_mlp and 1
+# cross_attn_mlp) in f32, its gates at I_GATE and its 1600 image tokens
+# a row drawn from the seed (``m_aux``)
+O_RUNS = {"O1": ("bfloat16", 2), "O2": ("float32", 1),
+          "O3": ("float32", 1), "O4": ("float32", 1)}
+# as M_TOL.  O1's and O3's lie between the sound readings and the faults
+# of port/scripts/shard_tol_control.py --tag O1|O3; see PERF.md.  O3's is
+# xlstm's own conditioning, as J2_F32_TOL's: in f32 its sound seeds 0-2
+# read 5.5e-4, 2.1e-4 and 2.8e-4 (the prefill; the sLSTM's time loop
+# and the mLSTM's normalizer carry the split sums' rounding), the sLSTM
+# carry one step stale 0.709
+O_TOL = {"O1": 2.0 ** -5, "O2": 2.0 ** -15, "O3": 2.0 ** -8,
+         "O4": 2.0 ** -15}
+MN_RUNS = tuple(M_RUNS) + tuple(N_RUNS) + tuple(O_RUNS)
 
 
 def m_run(tag: str) -> dict:
-    """Phase M's or N's run ``tag``: arch, dtype, pattern units, batch,
-    prompt length, cache length, decode steps, slots written before the
-    decode, and whether the prefill repeats one token id."""
+    """Phase M's, N's or O's run ``tag``: arch, dtype, pattern units,
+    batch, prompt length, cache length, decode steps, slots written before
+    the decode, and whether the prefill repeats one token id."""
     if tag in M_RUNS:
         return dict(arch=M_ARCH, dtype=M_RUNS[tag][0], units=M_RUNS[tag][1],
                     B=M_B, S=M_S, T=M_T, steps=M_STEPS, pos=M_POS,
                     repeat=False)
+    if tag in O_RUNS:
+        return dict(arch=O_ARCH[tag], dtype=O_RUNS[tag][0],
+                    units=O_RUNS[tag][1], B=O_B, S=O_S, T=O_T,
+                    steps=O_STEPS, pos=O_POS, repeat=False)
     return dict(arch=N_ARCH[tag], dtype=N_RUNS[tag][0],
                 units=N_RUNS[tag][1], B=N_B, S=N_S, T=N_T, steps=N_STEPS,
                 pos=N_POS, repeat=tag in N_REPEAT)
@@ -3314,25 +3356,65 @@ def m_tokens(tag: str, cfg, seed: int) -> tuple:
     return prompts, fed
 
 
+# the cache leaves with a context (or ring) dimension
+M_CONTEXT_LEAVES = ("k", "v", "c_kv", "k_rope")
+
+
 def m_caches(tag: str, cfg, device, seed: int):
     """``init_caches(cfg, B, T)`` on ``device`` with the first ``pos``
-    slots of every cache leaf N(0, 1), drawn on the device from ``seed``
-    (the same on every process), and every ``pos`` at ``pos``."""
+    slots of every context leaf (k, v, c_kv, k_rope) N(0, 1), every
+    recurrent state leaf N(0, 1) whole (the normalizers ``n`` their
+    magnitudes: the state a decode goes on from), drawn on the device
+    from ``seed`` (the same on every process), and every ``pos`` at
+    ``pos``."""
     import torch
     from repro_torch.models import init_caches
 
     run = m_run(tag)
     caches = init_caches(cfg, run["B"], run["T"], device=str(device))
     gen = torch.Generator(device=device).manual_seed(seed + 71)
-    for key in sorted(caches):
-        for name, t in sorted(caches[key].items()):
-            if name == "pos":
+
+    def fill(tree):
+        for name, t in sorted(tree.items()):
+            if isinstance(t, dict):
+                fill(t)
+            elif name == "pos":
                 t.fill_(run["pos"])
             else:
-                head = t[:, :, :run["pos"]]
-                head.copy_(torch.randn(head.shape, generator=gen,
-                                       device=device, dtype=torch.float32))
+                head = t[:, :, :run["pos"]] if name in M_CONTEXT_LEAVES \
+                    else t
+                x = torch.randn(head.shape, generator=gen, device=device,
+                                dtype=torch.float32)
+                head.copy_(x.abs_() if name == "n" else x)
+    fill(caches)
     return caches
+
+
+def m_aux(tag: str, cfg, device, seed: int) -> dict:
+    """The image embeddings (B, I, D) of a config with image tokens, in
+    bfloat16 (the dry run's input spec), N(0, 1) drawn on the device from
+    ``seed``; else nothing."""
+    import torch
+    if not cfg.n_image_tokens:
+        return {}
+    gen = torch.Generator(device=device).manual_seed(seed + 72)
+    img = torch.randn((m_run(tag)["B"], cfg.n_image_tokens, cfg.d_model),
+                      generator=gen, device=device, dtype=torch.float32)
+    return {"image_embed": img.to(torch.bfloat16)}
+
+
+def m_leaves(cfg, gen, device):
+    """``init_leaves``, every gate leaf at I_GATE (0 at init makes the
+    cross-attention block the identity).  A ``map``, not a generator of
+    its own: a generator's frame would hold the leaf it last yielded (a
+    whole one, 11.7 GiB at command-r's embedding) until asked for the
+    next, while ``shard_params`` has already dropped it."""
+    from repro_torch.models import init_leaves
+
+    def gated(leaf):
+        name, t = leaf
+        return name, (t.fill_(I_GATE) if "gate" in name else t)
+    return map(gated, init_leaves(cfg, gen, device))
 
 
 def _m_timed(fn, barrier=None) -> tuple:
@@ -3410,7 +3492,6 @@ def m_rank(rank: int, device, tags: tuple, seed: int) -> dict:
     from repro_torch.launch.mesh import make_process_mesh
     from repro_torch.launch.sharding import DEFAULT_RULES, ShardingRules
     from repro_torch.launch.steps import build_prefill_step, build_serve_step
-    from repro_torch.models import init_leaves
 
     mesh = make_process_mesh(M_MESH, M_AXES, device)
     rules = ShardingRules(DEFAULT_RULES)
@@ -3423,8 +3504,7 @@ def m_rank(rank: int, device, tags: tuple, seed: int) -> dict:
         ops.reset_launches()
         t0 = time.perf_counter()
         gen = torch.Generator(device=device).manual_seed(seed)
-        params = shard_params(init_leaves(cfg, gen, device), mesh, rules,
-                              cfg)
+        params = shard_params(m_leaves(cfg, gen, device), mesh, rules, cfg)
         init_s = time.perf_counter() - t0
         caches = shard_caches(cfg, run["B"], run["T"], mesh, rules,
                               whole=m_caches(tag, cfg, device, seed))
@@ -3433,10 +3513,11 @@ def m_rank(rank: int, device, tags: tuple, seed: int) -> dict:
         torch.cuda.reset_peak_memory_stats(device)
         prefill = build_prefill_step(cfg, rules, mesh)
         serve = build_serve_step(cfg, rules, mesh)
+        aux = m_aux(tag, cfg, device, seed)
 
         def batch(t):
-            return shard_batch({"tokens": torch.from_numpy(t).to(device)},
-                               mesh)
+            return shard_batch({"tokens": torch.from_numpy(t).to(device),
+                                **aux}, mesh)
 
         logits, ms = [], []
         with RouteWatch() as routes:
@@ -3469,7 +3550,7 @@ def m_rank(rank: int, device, tags: tuple, seed: int) -> dict:
                "by_tokens": routes.by_tokens}
         if rank == 0:
             rec["logits"] = [x.float().cpu().numpy() for x in logits]
-        del params, caches, local, logits, out_
+        del params, caches, local, logits, out_, aux
         gc.collect()
         torch.cuda.empty_cache()     # the next run's ranks share the card
         rec["s"] = time.perf_counter() - t_run
@@ -3492,16 +3573,18 @@ def m_unsharded(tag: str, seed: int) -> dict:
     ops.reset_launches()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
                          str(dev))
+    _set_gates(params)
     caches = m_caches(tag, cfg, dev, seed)
     prompts, fed = m_tokens(tag, cfg, seed)
+    aux = m_aux(tag, cfg, dev, seed)
     prefill, serve = build_prefill_step(cfg), build_serve_step(cfg)
     with RouteWatch() as routes:
         out, t = _m_timed(lambda: prefill(params, {
-            "tokens": torch.from_numpy(prompts).to(dev)}))
+            "tokens": torch.from_numpy(prompts).to(dev), **aux}))
         logits, ms = [out.float().cpu().numpy()], [t]
         for tok in fed:
             (out, caches), t = _m_timed(lambda: serve(params, caches, {
-                "tokens": torch.from_numpy(tok).to(dev)}))
+                "tokens": torch.from_numpy(tok).to(dev), **aux}))
             logits.append(out.float().cpu().numpy())
             ms.append(t)
     rec = {"logits": logits, "prefill_ms": ms[0], "decode_ms": ms[1:],
@@ -3509,7 +3592,7 @@ def m_unsharded(tag: str, seed: int) -> dict:
            "param_bytes": sum(p.numel() * p.element_size()
                               for p in params.parameters()),
            "launches": dict(ops.launches), "routes": routes.host()}
-    del params, caches
+    del params, caches, aux
     gc.collect()
     torch.cuda.empty_cache()
     return rec
@@ -3599,6 +3682,8 @@ def m_readings(tag: str, ranks: list, one: dict, layout: tuple) -> dict:
         "batch": run["B"], "prompt": run["S"], "cache": run["T"],
         "decode_from": run["pos"], "decode_steps": len(got) - 1,
         "repeated_prompt_rows": run["B"] // 2 if run["repeat"] else 0,
+        "image_tokens": cfg.n_image_tokens,
+        "gates": I_GATE if cfg.n_image_tokens else None,
         "gap_prefill": gaps[0], "gap_decode": gaps[1:], "gap_max": max(gaps),
         "logit_scale": float(max(np.abs(w).max() for w in want)),
         "param_bytes_per_rank": [r["param_bytes"] for r in ranks],
@@ -3630,9 +3715,10 @@ def m_readings(tag: str, ranks: list, one: dict, layout: tuple) -> dict:
 
 
 def drive_sharded_serve(seed: int, card: str, tags=MN_RUNS) -> dict:
-    """Phases M and N: the runs ``tags`` on ``spmd.card_layout(M_PROCS)``,
-    all in one spawn of the ranks (their start-up paid once), then each
-    unsharded in this process; each held to its bound (M_TOL, N_TOL) and
+    """Phases M, N and O: the runs ``tags`` on
+    ``spmd.card_layout(M_PROCS)``, all in one spawn of the ranks (their
+    start-up paid once), then each unsharded in this process; each held
+    to its bound (M_TOL, N_TOL, O_TOL) and
     its ranks' parameter bytes to the plan's; N2's and N3's routing to the
     unsharded run's, N2's assignments dropped alike on both sides."""
     import torch
@@ -3640,7 +3726,7 @@ def drive_sharded_serve(seed: int, card: str, tags=MN_RUNS) -> dict:
 
     layout = spmd.card_layout(M_PROCS)
     n_cards = torch.cuda.device_count()
-    print(f"phases M, N: {M_PROCS} processes, backend {layout[0]}, "
+    print(f"phases M, N, O: {M_PROCS} processes, backend {layout[0]}, "
           f"{n_cards} cards, devices {[str(d) for d in layout[1]]}")
     t0 = time.perf_counter()
     ranks = spmd.run(m_rank, layout[1], layout[0], (tuple(tags), seed))
@@ -3653,7 +3739,7 @@ def drive_sharded_serve(seed: int, card: str, tags=MN_RUNS) -> dict:
         one["s"] = time.perf_counter() - t0
         r = m_readings(tag, [x[tag] for x in ranks], one, layout)
         r["s"] = r["sharded_s"] + r["unsharded_s"] + r["plan_s"]
-        tol = M_TOL[tag] if tag in M_TOL else N_TOL[tag]
+        tol = {**M_TOL, **N_TOL, **O_TOL}[tag]
         r["tol"] = tol
         print(json.dumps({"phase": tag, **r, "card": card}))
         if r["gap_max"] > tol:
@@ -3672,6 +3758,8 @@ def drive_sharded_serve(seed: int, card: str, tags=MN_RUNS) -> dict:
                                 m["dropped_unsharded_prefill"] <= 0):
             fail(f"phase {tag}: routing {m}: the sharded run must drop "
                  "as many assignments as the unsharded run, more than 0")
+        if any(r["launches"].values()):
+            fail(f"phase {tag}: the model path launched {r['launches']}")
         phase = tag[0]
         out[tag] = {k: r[k] for k in ("gap_max", "s", "param_bytes_per_rank")}
         if "moe" in r:
@@ -4558,20 +4646,21 @@ def main() -> int:
                       "s": time.perf_counter() - t0, "card": card}))
     gc.collect()
     torch.cuda.empty_cache()
-    ops.reset_launches()             # phases M and N: the sharded serve step
+    ops.reset_launches()         # phases M, N and O: the sharded serve step
     t0 = time.perf_counter()
     rec_mn = drive_sharded_serve(args.seed, card)
-    for phase, tags in (("M", M_RUNS), ("N", N_RUNS)):
+    for phase, tags in (("M", M_RUNS), ("N", N_RUNS), ("O", O_RUNS)):
         print(json.dumps({"phase": phase, "backend": rec_mn["backend"],
                           "cards": rec_mn["cards"],
                           **{t: rec_mn[t] for t in tags},
                           "s": sum(rec_mn[t]["s"] for t in tags),
                           "card": card}))
-    print(f"phases M and N {time.perf_counter() - t0:.1f}s (spawn "
+    print(f"phases M, N and O {time.perf_counter() - t0:.1f}s (spawn "
           f"{rec_mn['spawn_s']:.1f}s)")
     for k in checks:
-        k["launches_m"] = rec_mn["launches"]["M"].get(k["name"], 0)
-        k["launches_n"] = rec_mn["launches"]["N"].get(k["name"], 0)
+        for phase in "MNO":
+            k[f"launches_{phase.lower()}"] = rec_mn["launches"][phase].get(
+                k["name"], 0)
     for k in checks:
         other = {tag: k[tag]["mismatches"]
                  for tag in ("wide_check", "shard_shape", "level_model_shape",

@@ -38,7 +38,7 @@ from repro_torch.core.plr import PLRModel
 from repro_torch.core.sstable import SSTable, advance_file_ids
 from repro_torch.core.store import BourbonStore, StoreConfig
 from repro_torch.launch.sharding import (distribute, local_shard,
-                                         param_sharding, require_blocks)
+                                         param_sharding)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import tree_paths, tree_unflatten
 from repro_torch.models.model import Model, param_shapes
@@ -179,8 +179,7 @@ def shard_params(params, mesh, rules, cfg: ModelConfig | None = None) -> Model:
     leaves, keeps its own piece of each and drops the rest before the next
     leaf.  The ranks make each leaf in turn (a barrier a leaf), so that
     ranks that share one card never hold more than one whole leaf at
-    once.  Every block of the stack must run sharded
-    (``sharding.require_block``)."""
+    once."""
     import torch.distributed as dist
 
     if isinstance(params, Model):
@@ -190,7 +189,6 @@ def shard_params(params, mesh, rules, cfg: ModelConfig | None = None) -> Model:
         raise ValueError("leaves without their config")
     else:
         leaves, turns = iter(params), True
-    require_blocks(cfg, mesh)
     specs = param_sharding(mesh, rules, param_shapes(cfg))
     rank, world = dist.get_rank(), dist.get_world_size()
     out = []

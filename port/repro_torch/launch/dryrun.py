@@ -25,10 +25,8 @@ the reference's keys; what each means here is in ``launch/README.md``:
   accessed`` (operand and result bytes an aten op) of the whole job,
   divided evenly over the positions (``cost_split``);
 - ``collectives``: the parameter and gradient traffic the specs imply
-  (``collectives_scope``); for a decode or prefill cell of a stack
-  whose blocks all run sharded (``sharding.SHARDED_BLOCKS``: the
-  ``attn_mlp``, ``attn_moe``, ``mla_dense`` and ``mla_moe`` stacks),
-  every collective of the step run sharded on
+  (``collectives_scope``); for a decode or prefill cell, every
+  collective of the step run sharded on
   ``DTensor``s at one position of a fake process group
   (:func:`sharded_plan`), which also gives its ``temp_bytes``.
 
@@ -72,8 +70,8 @@ from .inputs import _bspec, input_specs, shard_caches
 from .mesh import make_process_mesh, make_production_mesh
 from .plan import (ShardMeter, StepMeter, fake_process_group,
                    param_collectives, tree_bytes)
-from .sharding import (DEFAULT_RULES, SHARDED_BLOCKS, Sharded, ShardingRules,
-                       _axes_of, distribute, logical_to_spec)
+from .sharding import (DEFAULT_RULES, Sharded, ShardingRules, _axes_of,
+                       distribute, logical_to_spec)
 from .steps import (TrainConfig, build_prefill_step, build_serve_step,
                     build_train_step, opt_state_specs)
 
@@ -234,9 +232,7 @@ def plan_cell(cfg, shape: ShapeSpec, mesh: Mesh, *, res: dict | None = None,
     try:
         with StepMeter() as meter, FlopCounterMode(display=False) as fc:
             outputs = run()
-        if shape.kind != "train" and all(
-                st.block in SHARDED_BLOCKS
-                for st in cfg.prologue + cfg.pattern):
+        if shape.kind != "train":
             sharded = sharded_plan(cfg, shape, mesh, rules)
     finally:
         att.FLASH_KV_CHUNK = old_chunk

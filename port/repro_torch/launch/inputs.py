@@ -22,8 +22,7 @@ from repro_torch.models.layers import tree_map
 from repro_torch.models.model import Caches
 
 from .mesh import batch_axes
-from .sharding import (P, Sharded, ShardingRules, distribute, param_sharding,
-                       require_blocks)
+from .sharding import (P, Sharded, ShardingRules, distribute, param_sharding)
 
 __all__ = ["input_specs", "cache_specs", "batch_sds", "decode_batch_sds",
            "param_specs_sharded", "shard_caches", "shard_batch"]
@@ -125,7 +124,6 @@ def shard_caches(cfg: ModelConfig, B: int, T: int, mesh,
     zeros on its device (the whole cache is never made).  ``whole``:
     caches of that shape that every rank holds the same (a decode that
     goes on from them); each rank's piece is cut from them instead."""
-    require_blocks(cfg, mesh)        # their caches start at zero
     specs = cache_specs(cfg, ShapeSpec("serve", T, B, "decode"), mesh, rules)
     dev = mesh.device()
 

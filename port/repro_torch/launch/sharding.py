@@ -36,8 +36,7 @@ mesh.  The port has two kinds of mesh:
   dispatch and combine run by hand on each rank's pieces
   (``models/moe``) through the collectives here: :func:`gather_ranks`,
   :func:`sum_ranks` and :func:`all_to_all`, torch's functional
-  collectives.  The ``attn_mlp``, ``attn_moe``, ``mla_dense`` and
-  ``mla_moe`` stacks run sharded so far (:func:`require_block`).
+  collectives.  Every block of the reference runs sharded.
 """
 
 from __future__ import annotations
@@ -55,14 +54,9 @@ __all__ = ["P", "ShardingRules", "DEFAULT_RULES", "Sharded", "rules_ctx",
            "current_rules", "constraint", "param_constraint",
            "logical_to_spec", "param_sharding", "shard_shape", "placements",
            "distribute", "local_shard", "index_copy_", "embedding",
-           "require_block", "require_blocks", "SHARDED_BLOCKS",
-           "process_mesh", "split_axes", "whole_over", "piece_span",
-           "rank_index", "gather_ranks", "sum_ranks", "all_to_all",
-           "from_pieces"]
-
-# the blocks that run on a ProcessMesh (the rest are ROADMAP Queue 1's
-# later slices of item 8a)
-SHARDED_BLOCKS = ("attn_mlp", "attn_moe", "mla_dense", "mla_moe")
+           "laid_out_as", "process_mesh", "split_axes", "whole_over",
+           "piece_span", "rank_index", "gather_ranks", "sum_ranks",
+           "all_to_all", "from_pieces"]
 
 # logical axis -> mesh axis (or None = replicated).  "batch" maps to the
 # combined (pod, data) axes; "embed"/"heads"/"mlp"/"vocab"/"experts" are the
@@ -338,6 +332,19 @@ def embedding(tokens, table):
                               stride=_contiguous(shape))
 
 
+def laid_out_as(t, ref):
+    """``t`` redistributed to the placements of the DTensor ``ref``, a
+    tensor of the same rank whose dimensions mean the same (a layout
+    hint: a new value laid out as the cache it meets); ``t`` itself when
+    either is a plain tensor."""
+    from torch.distributed.tensor import DTensor
+
+    if not (isinstance(t, DTensor) and isinstance(ref, DTensor)) or \
+            tuple(t.placements) == tuple(ref.placements):
+        return t
+    return t.redistribute(ref.device_mesh, ref.placements)
+
+
 def process_mesh() -> ProcessMesh:
     """The process mesh of the current ``rules_ctx``; TypeError outside
     one."""
@@ -440,24 +447,6 @@ def from_pieces(local: torch.Tensor, places: tuple, shape: tuple):
     return DTensor.from_local(local, process_mesh().device_mesh, places,
                               run_check=False, shape=tuple(shape),
                               stride=_contiguous(shape))
-
-
-def require_block(block: str, mesh=None) -> None:
-    """Raise ``NotImplementedError`` for a block that does not run on a
-    process mesh yet (``mesh``, else the current one); nothing else (no
-    process mesh, or a block that does)."""
-    mesh = mesh if mesh is not None else getattr(_tls, "mesh", None)
-    if isinstance(mesh, ProcessMesh) and block not in SHARDED_BLOCKS:
-        raise NotImplementedError(
-            f"block {block!r} on a process mesh: only {SHARDED_BLOCKS} run "
-            "sharded so far; the rest are later slices of ROADMAP Queue 1 "
-            "item 8a")
-
-
-def require_blocks(cfg, mesh) -> None:
-    """:func:`require_block` for every block of ``cfg``'s stack."""
-    for st in cfg.prologue + cfg.pattern:
-        require_block(st.block, mesh)
 
 
 def _place(x: torch.Tensor, spec: P) -> torch.Tensor:

@@ -34,7 +34,7 @@ from repro_torch.optim import (AdamWConfig, adamw_init, adamw_state_shapes,
 
 from repro_torch.core.mesh import ProcessMesh
 
-from .sharding import ShardingRules, param_sharding, require_blocks, rules_ctx
+from .sharding import ShardingRules, param_sharding, rules_ctx
 
 __all__ = ["TrainConfig", "build_train_step", "build_serve_step",
            "build_prefill_step", "init_train_state", "opt_state_specs"]
@@ -121,7 +121,7 @@ def build_serve_step(cfg: ModelConfig, rules=None, mesh=None,
                      unroll: bool = False):
     """serve_step(params, caches, batch) -> (logits, caches): one new token
     against a pre-filled KV/state cache, the caches written in place."""
-    _check_mesh(cfg, mesh)
+    _check_mesh(mesh)
 
     def serve_step(params, caches, batch):
         with rules_ctx(rules, mesh), torch.inference_mode():
@@ -139,7 +139,7 @@ def build_prefill_step(cfg: ModelConfig, rules=None, mesh=None,
     """prefill_step(params, batch) -> logits (B, 1, V): ``forward`` over
     the batch's prompts with no remat and only the last position
     projected, as the reference's dry run jits its prefill cells."""
-    _check_mesh(cfg, mesh)
+    _check_mesh(mesh)
 
     def prefill_step(params, batch):
         with rules_ctx(rules, mesh), torch.inference_mode():
@@ -153,12 +153,10 @@ def build_prefill_step(cfg: ModelConfig, rules=None, mesh=None,
     return prefill_step
 
 
-def _check_mesh(cfg: ModelConfig, mesh) -> None:
-    """A mesh of distinct devices in one process, or a block that does not
-    run on a process mesh yet, raises ``NotImplementedError``."""
-    if isinstance(mesh, ProcessMesh):
-        require_blocks(cfg, mesh)
-    elif mesh is not None:
+def _check_mesh(mesh) -> None:
+    """A mesh of distinct devices in one process raises
+    ``NotImplementedError``."""
+    if mesh is not None and not isinstance(mesh, ProcessMesh):
         mesh.device()
 
 

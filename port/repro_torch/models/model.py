@@ -33,8 +33,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.core.engine import resolve_device
-from repro_torch.launch.sharding import (embedding, param_constraint,
-                                         require_block)
+from repro_torch.launch.sharding import embedding, param_constraint
 
 from .blocks import BLOCKS
 from .config import ModelConfig
@@ -159,7 +158,6 @@ class Layer(nn.Module):
         """The block's forward; with ``specs`` (the stage's stacked
         ``Spec`` tree) each leaf of the row first passes through
         ``param_constraint`` on its per-layer axes."""
-        require_block(self.block)
         p = self.rows()
         if specs is not None:
             p = tree_map(lambda a, s: param_constraint(a, s.axes[1:]), p,
@@ -169,7 +167,6 @@ class Layer(nn.Module):
     def decode(self, x, cfg, caches: "Caches", aux):
         """Decode one token through this layer, writing its row of the
         stage's stacked ``caches`` in place."""
-        require_block(self.block)
         cache = caches.rows[self.key][self.index]
         y, new = BLOCKS[self.block].decode(x, self.rows(), cfg, cache, aux)
         _write_back(cache, new)

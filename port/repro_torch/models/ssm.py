@@ -36,6 +36,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.sharding import laid_out_as
+
 from .attention import _sqrt_as
 from .layers import Spec, rms_norm, shard
 
@@ -83,19 +85,26 @@ def mamba_shapes(cfg, dtype):
 
 def _causal_conv(x, w, b):
     """Depthwise causal conv. x (B,S,Di); w (K,Di).  The K shifted products
-    are added in Python ``sum`` order, as in the reference."""
+    are added in Python ``sum`` order, as in the reference.  The K - 1
+    zeros ahead of x are concatenated, not ``F.pad``ded: torch 2.11's
+    DTensor fails to lay out the pad's decomposition (an IndexError)."""
     K = w.shape[0]
-    pad = F.pad(x, (0, 0, K - 1, 0))
+    pad = torch.cat([torch.zeros_like(x[:, :1])] * (K - 1) + [x], dim=1)
+    # w[i] of a reshape, not of w: on a DTensor, a view of a layer's row
+    # of a stacked parameter (made outside inference mode) raises in it
+    w = w.reshape(K, 1, 1, w.shape[1])
     out = sum(pad[:, i: i + x.shape[1], :] * w[i] for i in range(K))
     return out + b
 
 
 def _interleave(a, b):
-    """a at the even positions of axis 1, b at the odd ones."""
-    out = a.new_empty((a.shape[0], a.shape[1] + b.shape[1]) + a.shape[2:])
-    out[:, 0::2] = a
-    out[:, 1::2] = b
-    return out
+    """a at the even positions of axis 1, b at the odd ones (a has as many
+    positions as b, or one more).  Stacked pairwise, not written into a
+    new tensor: on a ``DTensor`` that would be whole (replicated), and
+    each write would gather its pieces."""
+    n = b.shape[1]
+    out = torch.stack([a[:, :n], b], dim=2).flatten(1, 2)
+    return torch.cat([out, a[:, n:]], dim=1) if a.shape[1] > n else out
 
 
 def _ssm_scan(dA, dBx):
@@ -132,12 +141,12 @@ def mamba(x, p, cfg):
     the hidden state carried across chunks."""
     B, S, D = x.shape
     N = cfg.ssm_state
-    xz = x @ p["in_proj"]
+    xz = shard(x @ p["in_proj"], ("batch", "seq", "mlp"))
     xi, z = torch.chunk(xz, 2, dim=-1)
     xi = F.silu(_causal_conv(xi, p["conv_w"], p["conv_b"]))
     xi = shard(xi, ("batch", "seq", "mlp"))
     R = _dt_rank(cfg)
-    proj = xi @ p["x_proj"]
+    proj = shard(xi @ p["x_proj"], ("batch", "seq", "lora"))
     dt = _softplus(proj[..., :R] @ p["dt_proj"] + p["dt_bias"])   # (B,S,Di)
     Bm = proj[..., R: R + N].float()                               # (B,S,N)
     Cm = proj[..., R + N:].float()
@@ -179,12 +188,12 @@ def mamba_decode(x, p, cfg, cache):
     """One step. cache: h (B,Di,N) f32, conv (B,K-1,Di).  The new conv
     cache is a view of a fresh tensor (``hist``), never of ``cache``."""
     N = cfg.ssm_state
-    xz = x @ p["in_proj"]                      # (B,1,2Di)
+    xz = shard(x @ p["in_proj"], ("batch", "seq", "mlp"))   # (B,1,2Di)
     xi, z = torch.chunk(xz[:, 0], 2, dim=-1)   # (B,Di)
     hist = torch.cat([cache["conv"], xi[:, None, :]], dim=1)   # (B,K,Di)
     xi = F.silu(torch.einsum("bkd,kd->bd", hist, p["conv_w"]) + p["conv_b"])
     R = _dt_rank(cfg)
-    proj = xi @ p["x_proj"]
+    proj = shard(xi @ p["x_proj"], ("batch", "lora"))
     dt = _softplus(proj[..., :R] @ p["dt_proj"] + p["dt_bias"])
     Bm = proj[..., R: R + N].float()
     Cm = proj[..., R + N:].float()
@@ -288,18 +297,29 @@ def _mlstm_chunkwise(q, k, v, logi, logf, ck: int):
     return torch.cat(hs, dim=2).to(v.dtype)
 
 
+def _by_heads(t, H=None):
+    """``t`` (B, [S,] H*hd) laid out by heads and cut into its ``H``
+    heads, or (B, [S,] H) laid out by heads (``H`` None).  A layout hint:
+    on a process mesh the products with the "mlp"-split rows of ``wq``,
+    ``wk``, ``wv``, ``wi`` and ``wf`` are partial sums over "model",
+    reduced here once and split by heads, so that the cell runs head by
+    head on each rank with no collective."""
+    t = shard(t, ("batch",) + ("seq",) * (t.ndim - 2) + ("heads",))
+    return t if H is None else t.reshape(t.shape[:-1] + (H, -1))
+
+
 def mlstm(x, p, cfg):
     B, S, D = x.shape
     H = cfg.n_heads
     Di = cfg.mlstm_pf * D
     hd = Di // H
-    up = x @ p["up"]
+    up = shard(x @ p["up"], ("batch", "seq", "mlp"))
     hin, z = torch.chunk(up, 2, dim=-1)                 # (B,S,Di)
-    q = (hin @ p["wq"]).reshape(B, S, H, hd).transpose(1, 2)
-    k = (hin @ p["wk"]).reshape(B, S, H, hd).transpose(1, 2)
-    v = (hin @ p["wv"]).reshape(B, S, H, hd).transpose(1, 2)
-    logi = (hin @ p["wi"]).transpose(1, 2).float()      # (B,H,S)
-    logf = F.logsigmoid((hin @ p["wf"]).transpose(1, 2).float())
+    q = _by_heads(hin @ p["wq"], H).transpose(1, 2)     # (B,H,S,hd)
+    k = _by_heads(hin @ p["wk"], H).transpose(1, 2)
+    v = _by_heads(hin @ p["wv"], H).transpose(1, 2)
+    logi = _by_heads(hin @ p["wi"]).transpose(1, 2).float()   # (B,H,S)
+    logf = F.logsigmoid(_by_heads(hin @ p["wf"]).transpose(1, 2).float())
     if S > MLSTM_CHUNK:
         hout = _mlstm_chunkwise(q, k, v, logi, logf, MLSTM_CHUNK)
     else:
@@ -317,13 +337,17 @@ def mlstm_decode(x, p, cfg, cache):
     H = cfg.n_heads
     Di = cfg.mlstm_pf * cfg.d_model
     hd = Di // H
-    up = x[:, 0] @ p["up"]
+    up = shard(x[:, 0] @ p["up"], ("batch", "mlp"))
     hin, z = torch.chunk(up, 2, dim=-1)                 # (B,Di)
-    q = (hin @ p["wq"]).reshape(B, H, hd)
-    k = (hin @ p["wk"]).reshape(B, H, hd)
-    v = (hin @ p["wv"]).reshape(B, H, hd)
-    logi = (hin @ p["wi"]).float()                      # (B,H)
-    logf = F.logsigmoid((hin @ p["wf"]).float())
+    # laid out as the state they meet (layout hints): q and k as ``n``,
+    # split on hd where the cache rule splits the state there (hd = T),
+    # v and the gates whole over "model"; the products with the
+    # "mlp"-split rows are partial sums, reduced here once
+    q = laid_out_as((hin @ p["wq"]).reshape(B, H, hd), cache["n"])
+    k = laid_out_as((hin @ p["wk"]).reshape(B, H, hd), cache["n"])
+    v = shard((hin @ p["wv"]).reshape(B, H, hd), ("batch", None, None))
+    logi = shard(hin @ p["wi"], ("batch", None)).float()      # (B,H)
+    logf = F.logsigmoid(shard(hin @ p["wf"], ("batch", None)).float())
     m_new = torch.maximum(logf + cache["m"], logi)
     fs = torch.exp(logf + cache["m"] - m_new)[..., None]
     is_ = torch.exp(logi - m_new)[..., None]
@@ -367,9 +391,12 @@ def _slstm_step(p, cfg, carry, wx):
     gi, gf, gz, go = torch.chunk(gates.float(), 4, dim=-1)
     # per-head scalar-ish gating (keep per-unit gates; stabilizer per unit)
     logf = F.logsigmoid(gf)
-    m_new = torch.maximum(logf + m[..., None], gi)
+    # m[..., None] as a reshape: on a DTensor, a view of the cache's row
+    # (made outside inference mode) raises in it
+    m = m.reshape(m.shape + (1,))
+    m_new = torch.maximum(logf + m, gi)
     i_ = torch.exp(gi - m_new)
-    f_ = torch.exp(logf + m[..., None] - m_new)
+    f_ = torch.exp(logf + m - m_new)
     c_new = f_ * c + i_ * torch.tanh(gz)
     n_new = f_ * n + i_
     h_new = torch.sigmoid(go) * c_new / torch.clamp_min(n_new, 1e-6)
@@ -382,7 +409,10 @@ def slstm(x, p, cfg):
     B, S, D = x.shape
     H = cfg.slstm_heads
     dh = D // H
-    wx = x @ p["W"]                                      # (B,S,4D)
+    # laid out as "mlp" once (a layout hint: DTensor may contract the
+    # product split over "data", and the loop would then reduce each
+    # step's slice of the partial sum, a collective a token)
+    wx = shard(x @ p["W"], ("batch", "seq", "mlp"))      # (B,S,4D)
     zeros = torch.zeros((B, H, dh), dtype=torch.float32, device=x.device)
     carry = (zeros, zeros, zeros,
              torch.zeros((B, H), dtype=torch.float32, device=x.device))
@@ -397,7 +427,7 @@ def slstm(x, p, cfg):
 
 def slstm_decode(x, p, cfg, cache):
     B = x.shape[0]
-    wx = x[:, 0] @ p["W"]
+    wx = shard(x[:, 0] @ p["W"], ("batch", "mlp"))
     carry = (cache["c"], cache["n"], cache["h"], cache["m"])
     (c, n, hh, m), h = _slstm_step(p, cfg, carry, wx)
     D = cfg.d_model

@@ -1,19 +1,21 @@
 #!/usr/bin/env python
-"""Phase M1's or N1's logit comparison, for the sound port and for
-controls that carry a deliberate fault in the sharded run: the readings
-that chip_smoke.py's M_TOL["M1"] and N_TOL["N1"] are set between.
+"""Phase M1's, N1's, O1's or O3's logit comparison, for the sound port
+and for controls that carry a deliberate fault in the sharded run: the
+readings that chip_smoke.py's M_TOL["M1"], N_TOL["N1"] and O_TOL["O1"],
+O_TOL["O3"] are set between.
 
-    python port/scripts/shard_tol_control.py [--tag M1|N1]
+    python port/scripts/shard_tol_control.py [--tag M1|N1|O1|O3]
 
 Needs a CUDA card.  For each of SEEDS it runs the phase as
 ``chip_smoke.py`` does (M1: command-r-plus-104b at full width, 4 units;
 N1: deepseek-v2-lite-16b at full width, its dense layer and 3 MoE units;
-both bf16, on a (data 2, model 2) mesh of four processes under
-DEFAULT_RULES) and the same unsharded, and reads the largest gap of each
-step's logits over the unsharded logits' largest magnitude, and, for N1,
-the (layer, token) positions whose top-k experts differ and the
-assignments each side dropped.  Each control patches one fault into the
-sharded run's processes only, on seed 0:
+both bf16; O1: hymba-1.5b at full width, 2 layers, bf16; O3: xlstm-1.3b
+at full width, one unit, f32; on a (data 2, model 2) mesh of four
+processes under DEFAULT_RULES) and the same unsharded, and reads the
+largest gap of each step's logits over the unsharded logits' largest
+magnitude, and, for N1, the (layer, token) positions whose top-k experts
+differ and the assignments each side dropped.  Each control patches one
+fault into the sharded run's processes only, on seed 0:
 
   norm_bf16       (M1) LayerNorm computed in bf16, not in f32
   slot_late       each decode step's cache row (k and v; MLA's c_kv and
@@ -24,6 +26,14 @@ sharded run's processes only, on seed 0:
                   data rank keeps assignments the reference drops
   shared_dropped  (N1) the second of deepseek's two shared experts left
                   out (its rows of the shared w2 zeroed)
+  h_kept          (O1) each decode step's new Mamba state h not written
+                  back: the cache keeps the state the decode began from
+  conv_late       (O1) the conv history kept one slot late: the K-1
+                  oldest of the K inputs, not the newest
+  slstm_stale     (O3) the sLSTM carry one step stale: each step hands
+                  on the carry the step before it made, so every step
+                  (and the decode's cache) starts from the state one step
+                  behind
 
 Prints one JSON line a reading, then the card's name and power limit.
 """
@@ -45,7 +55,9 @@ import numpy as np  # noqa: E402
 
 SEEDS = (0, 1, 2)
 FAULTS = {"M1": ("norm_bf16", "slot_late"),
-          "N1": ("no_offset", "shared_dropped", "slot_late")}
+          "N1": ("no_offset", "shared_dropped", "slot_late"),
+          "O1": ("h_kept", "conv_late"),
+          "O3": ("slstm_stale",)}
 
 
 def _layer_norm_bf16(x, scale, eps):
@@ -57,7 +69,7 @@ def _layer_norm_bf16(x, scale, eps):
 
 def _patch(fault) -> None:
     """``fault`` patched into this process's model code."""
-    from repro_torch.models import attention, layers, moe
+    from repro_torch.models import attention, layers, moe, ssm
 
     if fault == "norm_bf16":
         layers.layer_norm = _layer_norm_bf16
@@ -79,6 +91,32 @@ def _patch(fault) -> None:
             return glu(x, {**p, "w2": p["w2"] * keep.to(p["w2"].dtype)},
                        act)
         moe.glu_mlp = one_shared
+    elif fault in ("h_kept", "conv_late"):
+        import torch
+        import repro_torch.models.blocks as blocks
+        step, pending = ssm.mamba_decode, {}
+
+        def faulty_decode(x, p, cfg, cache):
+            out, new = step(x, p, cfg, cache)
+            if fault == "h_kept":
+                return out, {**new, "h": cache["h"]}
+            # the history stored without the newest input, which is held
+            # back a step: a layer's window always one slot behind
+            key = id(cache["conv"])
+            late = pending.get(key)
+            pending[key] = new["conv"][:, -1:]
+            return out, {**new, "conv": cache["conv"] if late is None else
+                         torch.cat([cache["conv"], late], dim=1)[:, 1:]}
+        ssm.mamba_decode = blocks.mamba_decode = faulty_decode
+    elif fault == "slstm_stale":
+        step, held = ssm._slstm_step, {}
+
+        def stale(p, cfg, carry, wx):
+            new, h = step(p, cfg, carry, wx)
+            out = held.get("carry", carry)
+            held["carry"] = new
+            return out, h
+        ssm._slstm_step = stale
     elif fault is not None:
         raise ValueError(fault)
 

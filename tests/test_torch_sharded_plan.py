@@ -86,7 +86,9 @@ def plans() -> dict:
                                ("qwen2-0.5b", "train_4k", 1),
                                ("deepseek-v2-lite-16b", "decode_32k", 1),
                                ("mixtral-8x22b", "decode_32k", 1),
-                               ("hymba-1.5b", "decode_32k", 1)):
+                               ("hymba-1.5b", "decode_32k", 1),
+                               ("xlstm-1.3b", "decode_32k", 1),
+                               ("llama-3.2-vision-11b", "decode_32k", 1)):
         r = dryrun.run_cell(arch, shape, units=units)
         out["cells"][f"{arch}|{shape}"] = {
             k: r.get(k) for k in ("collectives", "collectives_scope",
@@ -209,8 +211,29 @@ def test_moe_serving_cells_report_every_collective(planned, cell):
                                  + mem["output_bytes"] - mem["alias_bytes"])
 
 
-@pytest.mark.parametrize("cell", ["qwen2-0.5b|train_4k",
-                                  "hymba-1.5b|decode_32k"])
+@pytest.mark.parametrize("cell", ["hymba-1.5b|decode_32k",
+                                  "xlstm-1.3b|decode_32k",
+                                  "llama-3.2-vision-11b|decode_32k"])
+def test_recurrent_and_cross_attention_cells_report_every_collective(
+        planned, cell):
+    """The recurrent and cross-attention decode cells are planned on
+    DTensors too: the activations' partial sums are reduced, and the
+    recurrent states (hymba's Mamba state, xlstm's mLSTM and sLSTM
+    states) written back, as the step runs them."""
+    c = planned["cells"][cell]
+    assert c["collectives_scope"] == "all (DTensor placements)"
+    assert c["temp_scope"] == "one position's shard (DTensor placements)"
+    assert c["collective_counts"]["all-reduce"] > 0
+    assert c["collectives"]["all-gather"] > 0
+    assert all((c["collective_counts"][k] > 0) == (v > 0)
+               for k, v in c["collectives"].items())
+    mem = c["memory"]
+    assert mem["peak_bytes"] == (mem["argument_bytes"] + mem["temp_bytes"]
+                                 + mem["output_bytes"] - mem["alias_bytes"])
+    assert sum(c["argument_parts"].values()) == mem["argument_bytes"]
+
+
+@pytest.mark.parametrize("cell", ["qwen2-0.5b|train_4k"])
 def test_other_cells_keep_the_parameter_count(planned, cell):
     c = planned["cells"][cell]
     assert c["collectives_scope"] == "parameters and gradients"

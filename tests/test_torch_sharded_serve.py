@@ -52,9 +52,12 @@ from repro_torch.models.model import Caches  # noqa: E402
 
 ARCHS = ("qwen2-0.5b", "qwen2.5-14b", "glm4-9b", "command-r-plus-104b",
          "musicgen-large")
-# one of each block that does not run on a process mesh yet (the MoE and
-# MLA blocks do: test_torch_sharded_moe.py)
+# an arch of each recurrent and cross-attention block, whose layer, weights
+# and steps run here at a glance (test_torch_sharded_ssm.py and
+# test_torch_sharded_xattn.py hold them to the reference; the MoE and MLA
+# blocks, test_torch_sharded_moe.py)
 OTHER_ARCHS = {"hybrid": "hymba-1.5b", "mlstm": "xlstm-1.3b",
+               "slstm": "xlstm-1.3b",
                "cross_attn_mlp": "llama-3.2-vision-11b"}
 MESH, AXES = (2, 2), ("data", "model")
 B, S, STEPS = 4, 8, 3
@@ -179,19 +182,19 @@ def _local_shapes(tree, specs) -> list:
 def rank_body(rank: int, device, cases_: list, other: dict,
               staged: bool = False) -> dict:
     """One rank of the (2, 2) mesh: each case's steps sharded under
-    DEFAULT_RULES, its local shapes, and the errors each other block's
-    config raises.  ``staged``: the collectives run through
+    DEFAULT_RULES, its local shapes, and what each other block's config
+    gave (:func:`other_block`).  ``staged``: the collectives run through
     ``spmd.stage_through_host`` (the card's gloo path) on the CPU."""
     from repro_torch.launch import spmd
     from repro_torch.launch.inputs import cache_specs
     from repro_torch.configs.base import ShapeSpec
-    from repro_torch.launch.sharding import param_sharding, rules_ctx
+    from repro_torch.launch.sharding import param_sharding
 
     if staged:
         spmd.stage_through_host("CPU")
     mesh = make_process_mesh(MESH, AXES, device)
     rules = ShardingRules(DEFAULT_RULES)
-    out = {"coordinate": mesh.coordinate, "cases": {}, "errors": {}}
+    out = {"coordinate": mesh.coordinate, "cases": {}, "other": {}}
     for name, arch, T, pos in cases_:
         cfg = get_smoke_config(arch)
         params = shard_params(params_from_numpy(np_params(cfg), cfg, device),
@@ -208,26 +211,50 @@ def rank_body(rank: int, device, cases_: list, other: dict,
         res["shapes"] = shapes
         out["cases"][name] = res
     for block, arch in other.items():
-        cfg = dataclasses.replace(get_smoke_config(arch), n_units=1)
-        errs = []
-        for what in ("shard_params", "serve_step", "prefill_step", "layer"):
-            try:
-                if what == "shard_params":
-                    shard_params(params_from_numpy(np_params(cfg), cfg,
-                                                   device), mesh, rules)
-                elif what == "serve_step":
-                    build_serve_step(cfg, rules, mesh)
-                elif what == "prefill_step":
-                    build_prefill_step(cfg, rules, mesh)
-                else:
-                    model = params_from_numpy(np_params(cfg), cfg, device)
-                    layer = next(m for m in model.blocks if m.block == block)
-                    with rules_ctx(rules, mesh):
-                        layer(None, cfg, {})
-                errs.append((what, None))
-            except NotImplementedError as e:
-                errs.append((what, str(e)))
-        out["errors"][block] = errs
+        out["other"][block] = other_block(block, arch, mesh, rules, device)
+    return out
+
+
+def other_block(block: str, arch: str, mesh, rules, device) -> dict:
+    """``arch``'s smoke config (one unit) on the process mesh: whether
+    ``shard_params`` made every parameter a DTensor, and the global shape
+    and finiteness of what the prefill step, a decode step and the first
+    ``block`` layer itself (on a batch-split input) return."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.sharding import P, distribute, rules_ctx
+
+    cfg = dataclasses.replace(get_smoke_config(arch), n_units=1)
+    model = shard_params(params_from_numpy(np_params(cfg), cfg, device),
+                         mesh, rules)
+    out = {"shard_params": all(isinstance(t, DTensor)
+                               for t in model.parameters())}
+    x = np_inputs(cfg)
+    aux = {}
+    if cfg.n_image_tokens:
+        aux["image_embed"] = torch.ones(B, cfg.n_image_tokens, cfg.d_model,
+                                        device=device)
+
+    def seen(t) -> tuple:
+        return (isinstance(t, DTensor), tuple(t.shape),
+                bool(torch.isfinite(t.full_tensor()).all()))
+
+    def batch(tokens):
+        return shard_batch({"tokens": torch.from_numpy(tokens).to(device),
+                            **aux}, mesh)
+
+    out["prefill_step"] = seen(build_prefill_step(cfg, rules, mesh)(
+        model, batch(x["tokens"])))
+    caches = shard_caches(cfg, B, CACHE_T_SMALL, mesh, rules)
+    out["serve_step"] = seen(build_serve_step(cfg, rules, mesh)(
+        model, caches, batch(x["step_tokens"][0]))[0])
+    layer = next(m for m in model.blocks if m.block == block)
+    h = distribute(torch.ones(B, S, cfg.d_model, device=device), P("data"),
+                   mesh)
+    with rules_ctx(rules, mesh), torch.inference_mode():
+        y, _ = layer(h, cfg, {k: distribute(v, P("data"), mesh)
+                              for k, v in aux.items()})
+    out["layer"] = seen(y)
     return out
 
 
@@ -392,18 +419,17 @@ def test_local_shards_have_shard_shape(results, case):
 
 
 @pytest.mark.parametrize("block", sorted(OTHER_ARCHS))
-def test_other_blocks_raise_on_a_process_mesh(results, block):
-    """``shard_params``, both steps and the layer itself raise
-    NotImplementedError naming the block and ROADMAP's later slice."""
+def test_other_blocks_run_on_a_process_mesh(results, block):
+    """``shard_params``, both steps and the block's layer itself run on the
+    process mesh, each returning a DTensor of the global shape, finite."""
     ranks, _ = results
+    cfg = get_smoke_config(OTHER_ARCHS[block])
     for r in ranks:
-        errs = dict(r["errors"][block])
-        assert set(errs) == {"shard_params", "serve_step", "prefill_step",
-                             "layer"}
-        for what, msg in errs.items():
-            assert msg is not None, f"{what} ran {block} on a process mesh"
-            assert "ROADMAP" in msg and "8a" in msg
-        assert block in errs["layer"]
+        got = r["other"][block]
+        assert got == {"shard_params": True,
+                       "prefill_step": (True, (B, 1, cfg.vocab), True),
+                       "serve_step": (True, (B, 1, cfg.vocab), True),
+                       "layer": (True, (B, S, cfg.d_model), True)}, got
 
 
 def test_host_staged_collectives_match_unsharded(unsharded):

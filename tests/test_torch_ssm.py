@@ -3,8 +3,9 @@ same inputs: ``models/ssm.py`` function by function (Mamba's causal
 conv, associative scan, chunked forward and decode; mLSTM's parallel,
 chunkwise and recurrent forms; sLSTM's step, scan and decode), the
 ``hybrid``, ``mlstm`` and ``slstm`` blocks, and the hymba-1.5b and
-xlstm-1.3b smoke configs whole, through ``forward``, ``decode_step`` and
-the serving engine.
+xlstm-1.3b smoke configs whole through ``decode_step``
+(``test_torch_ssm_stacks.py`` holds them through ``forward``, the
+serving engine and the launcher, with these helpers).
 
 Parameters and activations are drawn from a seed with numpy (Mamba's
 ``A_log`` is the reference's ``log(1..N)`` and ``Dskip`` ones, as
@@ -44,7 +45,6 @@ from repro.configs import get_smoke_config as jget_smoke  # noqa: E402
 from repro.models import blocks as jblocks  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
 from repro.models import ssm as jssm  # noqa: E402
-from repro.serving import engine as jeng  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.models import (decode_step, forward, init_caches,  # noqa: E402
@@ -52,7 +52,6 @@ from repro_torch.models import (decode_step, forward, init_caches,  # noqa: E402
 from repro_torch.models import ssm as pssm  # noqa: E402
 from repro_torch.models.blocks import BLOCKS  # noqa: E402
 from repro_torch.models.layers import Spec, tree_leaves  # noqa: E402
-from repro_torch.serving import engine as peng  # noqa: E402
 
 TOL = 1e-5
 BF16_TOL = 2.0 ** -5     # test_torch_models.py's: 8 bf16 ulps of the scale
@@ -430,21 +429,6 @@ def test_block_forward_and_decode_match_reference(block):
 
 # ------------------------------------------------------------- whole models
 
-@pytest.mark.parametrize("arch,S", [(HYMBA, 12), (HYMBA, 1024),
-                                    (XLSTM, 12), (XLSTM, 512)])
-def test_forward_matches_reference(arch, S):
-    """The smoke config through ``forward``; hymba at 1024 runs its mamba
-    heads chunked (and its attention through the chunked softmax), xlstm
-    at 512 its mLSTM chunkwise."""
-    cfg, jcfg, jp, pp = pair(arch)
-    toks = tokens(cfg, (B, S))
-    jl, jaux = jmodel.forward(jp, jcfg, tokens=jnp.asarray(toks), remat=None)
-    pl, paux = forward(pp, cfg, tokens=torch.from_numpy(toks))
-    assert pl.shape == (B, S, cfg.vocab) and pl.dtype == torch.float32
-    close(pl, jl)
-    close(paux, jaux)
-
-
 @pytest.mark.parametrize("arch", SSM_ARCHS)
 def test_decode_matches_reference(arch):
     """8 decode steps with caches: each step's logits, then every leaf of
@@ -621,50 +605,3 @@ def test_decode_matches_forward_ssm(arch):
     outs = [decode_step(params, cfg, caches, tokens=toks[:, i:i + 1])[0]
             for i in range(8)]
     close(torch.cat(outs, dim=1), full.numpy())
-
-
-# -------------------------------------------------------------------- serving
-
-@pytest.mark.parametrize("arch", SSM_ARCHS)
-def test_serving_engine_matches_reference(arch):
-    """The serve launcher's workload (12 requests of 3-9 tokens, 8 new,
-    ``max_batch=4``) on the smoke config: the reference's tokens, steps,
-    page pool, session stats and every cache leaf.  The whole-batch
-    prefill drives every slot's recurrent state in both packages."""
-    cfg, jcfg, jp, pp = pair(arch)
-    ecfg = {"max_batch": 4, "max_seq": 64}
-    je = jeng.ServingEngine(jcfg, jp, jeng.EngineConfig(**ecfg),
-                            session_policy="always")
-    pe = peng.ServingEngine(cfg, pp, peng.EngineConfig(**ecfg),
-                            session_policy="always", device="cpu")
-    reqs = []
-    for eng, Request in ((je, jeng.Request), (pe, peng.Request)):
-        rng = np.random.default_rng(0)
-        rs = [Request(rid=1000 + i, prompt=rng.integers(
-            0, cfg.vocab, size=rng.integers(3, 10)).astype(np.int32),
-            max_new=8) for i in range(12)]
-        for r in rs:
-            eng.submit(r)
-        eng.run_until_drained()
-        reqs.append(rs)
-    assert [(r.rid, r.done, r.generated) for r in reqs[0]] == \
-        [(r.rid, r.done, r.generated) for r in reqs[1]]
-    assert pe.steps == je.steps and pe.pool.free == je.pool.free
-    assert pe.sessions.stats() == je.sessions.stats()
-    close_tree(dict(pe.caches), je.caches)
-
-
-@pytest.mark.parametrize("arch", SSM_ARCHS)
-def test_serve_launcher_serves_the_recurrent_archs(arch, capsys,
-                                                   monkeypatch):
-    """``launch/serve.py --arch ... --device cpu`` prints the reference
-    launcher's line."""
-    from repro.launch import serve as jserve
-    from repro_torch.launch import serve as pserve
-
-    monkeypatch.setattr(sys, "argv", ["serve", "--arch", arch])
-    jserve.main()
-    want = capsys.readouterr().out
-    pserve.main(["--arch", arch, "--device", "cpu"])
-    got = capsys.readouterr().out
-    assert want.startswith("served 12 requests in ") and got == want
