@@ -223,6 +223,32 @@
         (``launches_m``, ``launches_n``, ``launches_o``); the model path
         runs none of the five kernels, and a launch there fails the
         run.
+     P  the sharded train step (``build_train_step`` on the process
+        mesh: the parameters and the AdamW state DTensors, the batch
+        split over "data"), on M's mesh and launcher, remat "full", 3
+        AdamW steps of 8 x 128 tokens from the seed, each run first
+        unsharded on cuda:0 from the same draw (its state saved, the
+        model freed before the ranks spawn): P1 qwen2-0.5b at full width
+        in bf16 with the f32 master, 4 of its 24 layers (``P_RUNS``), which
+        checkpoints after step 2 on the mesh (rank 0 writes the gathered
+        leaves) and whose step 3, redone by fresh ranks from that
+        checkpoint, must equal the uninterrupted one bit for bit (every
+        rank's every piece); P2 qwen2 in f32, 2 layers, microbatch 2; P3
+        deepseek-v2-lite-16b in f32, its dense layer and one MoE unit,
+        whose aux loss must be nonzero and match the unsharded one's
+        within P_AUX_TOL.  Each line has the loss and grad-norm gaps
+        (within P_TOL's "metrics"), the largest gap of m and v after the
+        first step, where both runs route alike (the gradient's witness:
+        within P_TOL's "step1"), and of the parameters, master, m and v
+        after the last step, of each leaf's largest magnitude (within
+        P_TOL's "leaves"), the collectives of a step by kind and their
+        bytes (``plan.ShardMeter``), ms a step both ways, the peak device
+        bytes a rank, each rank's parameter and optimizer bytes against
+        the plan's (equal), and for P3 which side of the MoE byte rule
+        each call took and, step by step, the tokens whose experts differ
+        between the two runs.  Counts are zeroed just before P and read just
+        after it (``launches_p``): the train path runs none of the five
+        kernels, and a launch there fails the run.
    After the timed batches of C, D, E and G, 4 of the phase's batches
    replay through its dispatch half (``BourbonStore.dispatch_get`` in C,
    ``ShardedStore.dispatch_get`` in D and G, and in E shard 0's
@@ -279,6 +305,7 @@ import dataclasses
 import gc
 import json
 import os
+import pathlib
 import shutil
 import subprocess
 import sys
@@ -3451,7 +3478,7 @@ class RouteWatch:
 
         def spy(xg, router, K, C, before=None):
             out = self.real[0](xg, router, K, C, before)
-            self.calls.append((out[0], out[1], out[3]))
+            self.calls.append((out[0].detach(), out[1], out[3]))
             return out
 
         def moved(*args):
@@ -3767,6 +3794,534 @@ def drive_sharded_serve(seed: int, card: str, tags=MN_RUNS) -> dict:
         counts = out["launches"].setdefault(phase, {})
         for k, n in r["launches"].items():
             counts[k] = counts.get(k, 0) + n
+    return out
+
+
+# phase P: the sharded train step on M's mesh and launcher
+P_ARCH = {"P1": "qwen2-0.5b", "P2": "qwen2-0.5b",
+          "P3": "deepseek-v2-lite-16b"}
+# (dtype, pattern units, microbatch): P1 qwen2 at full width in bf16 with
+# the f32 master, 4 of its 24 layers; P2 2 layers in f32 at microbatch 2;
+# P3 deepseek's dense layer and one MoE unit in f32 (N3's cut).  Every
+# run remat "full", P_STEPS AdamW steps of P_B x P_S tokens.  P1's cut:
+# at full depth its steps took 17.0, 25.3 and 45.3 s (the last waiting on
+# rank 0's 7 GB checkpoint, 36.9 s), its run 160 s and the fresh ranks'
+# resume 54 s (on an NVIDIA H100 80GB HBM3, 700.00 W), which
+# put phase P near 365 s and the smoke past 1,000 s
+P_RUNS = {"P1": ("bfloat16", 4, 1), "P2": ("float32", 2, 2),
+          "P3": ("float32", 1, 1)}
+P_B, P_S, P_STEPS = 8, 128, 3
+P_CKPT_AFTER = 2          # P1 checkpoints after step 2; fresh ranks redo 3
+P_LEAF_KINDS = ("params", "master", "m", "v")
+P_STEP1_KINDS = ("m", "v")   # held after the first step (P_TOL's "step1")
+# Bounds, sharded against unsharded: "metrics" on each step's loss and
+# grad norm (relative), "step1" on each leaf of m and v after the first
+# step (the gradient, taken while both runs route alike), "leaves" on
+# each leaf of the parameters, master, m and v after the last step (both
+# of the leaf's largest magnitude).  Set between readings of
+# port/scripts/shard_tol_control.py --tag P1|P2|P3 on an NVIDIA H100 80GB
+# HBM3, 700.00 W (sound seeds 0-2; faults on seed 0: a data rank's
+# gradients unreduced, the norm over a rank's own pieces, P3's aux over a
+# rank's own tokens), each bound the power of two nearest the geometric
+# mean of the largest sound reading and the smallest fault reading.  P1
+# (bf16, 4 layers): metrics sound <= 6.60e-4, faults >= 0.104; step1 <=
+# 0.0343 against >= 1.05; leaves <= 0.0332 (bf16 parameters moved by
+# Adam's per-entry normalization) against >= 0.993 (at 24 layers, before
+# the cut: metrics <= 2.15e-3, leaves <= 0.0967 against >= 0.105 and >=
+# 0.911).  P2 (f32): metrics <= 3.4e-7 against >= 0.0984; step1 <= 4.81e-6
+# against >= 0.994; leaves <= 9.1e-4 against >= 0.99.  P3 (f32): metrics
+# <= 1.20e-5 against >= 1.22e-4 (the aux over a rank's own tokens); step1
+# <= 1.26e-5 against >= 0.111 (the same fault); the aux loss read equal
+# (0.0) against 0.040.  P3's leaves read 0.10-0.14 (m of the experts):
+# of 2,048 routings a step (the forward's and remat's recomputation's),
+# 0 differ at step 1 on every seed, 2 at step 3 on every seed and 2 at
+# step 2 on seed 2, each between experts whose probabilities tie to
+# within 1e-5 (the median margin 2.0e-3), and such a flip moves a
+# token's share of two experts' gradients; 2^-2 there holds only a
+# coarse line, 1.5x under the fault at 0.367, and "step1" is P3's check
+# of every gradient leaf.  See PERF.md
+P_TOL = {"P1": {"metrics": 2.0 ** -7, "step1": 2.0 ** -2,
+                "leaves": 2.0 ** -2},
+         "P2": {"metrics": 2.0 ** -12, "step1": 2.0 ** -9,
+                "leaves": 2.0 ** -5},
+         "P3": {"metrics": 2.0 ** -15, "step1": 2.0 ** -10,
+                "leaves": 2.0 ** -2}}
+P_AUX_TOL = 2.0 ** -16    # P3's aux loss, relative
+P_ONE_DEVICE = "cuda:0"   # the unsharded runs' (a CPU rehearsal: "cpu")
+
+
+def p_config(tag: str):
+    """Run ``tag``'s arch at full width, its pattern units, its dtype."""
+    from repro_torch.configs import get_config
+    dtype, units, _ = P_RUNS[tag]
+    return dataclasses.replace(get_config(P_ARCH[tag]), n_units=units,
+                               dtype=dtype)
+
+
+def p_train(tag: str):
+    from repro_torch.launch.steps import TrainConfig
+    return TrainConfig(remat="full", microbatch=P_RUNS[tag][2])
+
+
+def p_batches(cfg, seed: int) -> list:
+    """P_STEPS batches of P_B x P_S token ids and labels from ``seed``
+    (the same on both sides)."""
+    rng = np.random.default_rng(seed + 80)
+    return [{k: rng.integers(0, cfg.vocab, (P_B, P_S)).astype(np.int32)
+             for k in ("tokens", "labels")} for _ in range(P_STEPS)]
+
+
+def _p_aux(model, cfg, batch, rules=None, mesh=None) -> float:
+    """The aux loss of ``batch`` at ``model``'s parameters."""
+    import torch
+    from repro_torch.launch.sharding import rules_ctx
+    from repro_torch.models import loss_fn
+
+    with rules_ctx(rules, mesh), torch.no_grad():
+        aux = loss_fn(model, cfg, batch, remat="none")[1]["aux"]
+    return float(aux.full_tensor() if hasattr(aux, "full_tensor") else aux)
+
+
+def p_unsharded(tag: str, seed: int, out_dir: str) -> dict:
+    """Run ``tag`` on one process on P_ONE_DEVICE from the same draw: P_STEPS
+    train steps, each timed, every MoE routing watched (``route_calls``:
+    the calls made by the end of each step); AdamW's m and v after the
+    first step and the state after the last saved to ``out_dir``
+    (``ckpt.save``'s layout, for the ranks to read); the aux loss of the
+    first batch before any step."""
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+
+    cfg, tc = p_config(tag), p_train(tag)
+    dev = torch.device(P_ONE_DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                        str(dev)).trainable()
+    opt = adamw_init(model, tc.optim)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+               for b in p_batches(cfg, seed)]
+    rec = {"aux": _p_aux(model, cfg, batches[0]) if cfg.n_experts else None}
+    step = build_train_step(cfg, tc)
+    rec["loss"], rec["grad_norm"], rec["step_ms"] = [], [], []
+    rec["route_calls"] = []
+    with RouteWatch() as routes:
+        for i, b in enumerate(batches):
+            (model, opt, m), t = _m_timed(lambda: step(model, opt, b))
+            rec["loss"].append(float(m["loss"]))
+            rec["grad_norm"].append(float(m["grad_norm"]))
+            rec["step_ms"].append(t)
+            rec["route_calls"].append(len(routes.calls))
+            if i == 0:
+                ckpt.save({"o": {k: opt[k] for k in P_STEP1_KINDS}},
+                          out_dir, 1)
+    rec["routes"] = routes.host()
+    rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    ckpt.save({"p": model.tree(), "o": opt}, out_dir, P_STEPS)
+    del model, opt, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _p_digest(tree) -> dict:
+    """Each leaf's local piece (a DTensor's, or the tensor) as a digest of
+    its bytes: held bit for bit between two runs of the same ranks."""
+    import hashlib
+    import torch
+    from repro_torch.models.layers import tree_paths
+
+    out = {}
+    for name, t in tree_paths(tree):
+        t = t.to_local() if hasattr(t, "to_local") else t
+        t = t.detach().contiguous().cpu()
+        raw = t.view(torch.uint8) if t.dim() else t.reshape(1).view(
+            torch.uint8)
+        out[name] = hashlib.sha256(raw.numpy().tobytes()).hexdigest()
+    return out
+
+
+def _p_gaps(tree, ref_dir: str, mesh, step: int = P_STEPS,
+            kinds: tuple = P_LEAF_KINDS) -> dict:
+    """The largest gap of each of ``kinds`` of leaf (of P_LEAF_KINDS)
+    between the ranks' state ``tree`` ({"p", "o"}) and the unsharded run's
+    state after ``step`` in ``ref_dir``, as a share of each leaf's largest
+    magnitude: each rank reads its pieces of the unsharded leaves, and the
+    gaps and the scales are reduced by max over the mesh."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint.ckpt import _load
+    from repro_torch.launch.sharding import local_shard
+    from repro_torch.models.layers import tree_paths
+
+    def piece(meta, t):
+        whole = _load(pathlib.Path(d) / meta["file"], meta["dtype"],
+                      mmap=True)
+        return local_shard(whole, _spec_of(t, mesh), mesh).to(
+            t.device, torch.float32)
+
+    d = os.path.join(ref_dir, f"step_{step:08d}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        leaves = json.load(f)["leaves"]
+    trees = {"params": tree.get("p"), **{k: tree["o"].get(k) for k in
+                                         ("master", "m", "v")}}
+    names, rows = [], []
+    for kind in kinds:
+        prefix = "p." if kind == "params" else f"o.{kind}."
+        for name, t in tree_paths(trees[kind]):
+            want = piece(leaves[prefix + name], t)
+            got = t.to_local().float()
+            rows.append(torch.stack([(got - want).abs().max(),
+                                     want.abs().max()]))
+            names.append(kind)
+    both = torch.stack(rows)
+    dist.all_reduce(both, op=dist.ReduceOp.MAX)
+    out = {k: 0.0 for k in kinds}
+    for kind, (gap, scale) in zip(names, both.tolist()):
+        out[kind] = max(out[kind], gap / scale if scale else gap)
+    return out
+
+
+def _spec_of(t, mesh):
+    """The spec whose placements on ``mesh`` are the DTensor ``t``'s."""
+    from repro_torch.launch.sharding import P
+    parts = [[] for _ in range(t.ndim)]
+    for axis, pl in zip(mesh.axis_names, t.placements):
+        if pl.is_shard():
+            parts[pl.dim].append(axis)
+    return P(*(tuple(p) for p in parts))
+
+
+def p_rank(rank: int, device, tags: tuple, seed: int, refs: dict,
+           ckpt_dir: str | None) -> dict:
+    """One rank of phase P, each run of ``tags`` in turn: ``p_config``'s
+    model laid out over the process mesh under DEFAULT_RULES, drawn leaf
+    by leaf with ``init_leaves`` on a generator seeded ``seed`` (the
+    unsharded run's draws), its AdamW state laid out as the parameters;
+    P_STEPS train steps, each timed, every MoE routing watched, the first
+    under ``plan.ShardMeter`` (the collectives of a step by kind, and their
+    bytes), m and v after it held against the unsharded run's; P1
+    checkpoints after step P_CKPT_AFTER into ``ckpt_dir`` (None: it does
+    not).  Then the gaps to the unsharded run's state in ``refs[tag]``
+    and, for P1, each leaf's digest.  Returns a record a run."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.convert import shard_params
+    from repro_torch.kernels import ops
+    from repro_torch.launch.inputs import shard_batch
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.launch.plan import ShardMeter
+    from repro_torch.launch.sharding import DEFAULT_RULES, ShardingRules
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim import adamw_init
+
+    mesh = make_process_mesh(M_MESH, M_AXES, device)
+    rules = ShardingRules(DEFAULT_RULES)
+    out = {}
+    for tag in tags:
+        t_run = time.perf_counter()
+        cfg, tc = p_config(tag), p_train(tag)
+        torch.cuda.reset_peak_memory_stats(device)
+        ops.reset_launches()
+        gen = torch.Generator(device=device).manual_seed(seed)
+        model = shard_params(m_leaves(cfg, gen, device), mesh, rules,
+                             cfg).trainable()
+        opt = adamw_init(model, tc.optim)
+        batches = [shard_batch({k: torch.from_numpy(v).to(device)
+                                for k, v in b.items()}, mesh)
+                   for b in p_batches(cfg, seed)]
+        rec = {"aux": _p_aux(model, cfg, batches[0], rules, mesh)
+               if cfg.n_experts else None}
+        step = build_train_step(cfg, tc, rules, mesh)
+        rec["loss"], rec["grad_norm"], rec["step_ms"] = [], [], []
+        rec["route_calls"] = []
+        with RouteWatch() as routes:
+            for i, b in enumerate(batches):
+                meter = ShardMeter() if i == 0 else contextlib.nullcontext()
+
+                def one_step():
+                    with meter:
+                        return step(model, opt, b)
+                (model, opt, m), t = _m_timed(one_step, dist.barrier)
+                rec["loss"].append(float(m["loss"]))
+                rec["grad_norm"].append(float(m["grad_norm"]))
+                rec["step_ms"].append(t)
+                rec["route_calls"].append(len(routes.calls))
+                if i == 0:
+                    rec["collectives_step"] = meter.counts
+                    rec["collective_bytes_step"] = meter.collectives
+                    # m and v after one step are the gradient's, taken
+                    # where both runs route alike
+                    rec["gaps_step1"] = _p_gaps({"o": opt}, refs[tag],
+                                                mesh, 1, P_STEP1_KINDS)
+                if tag == "P1" and ckpt_dir and i + 1 == P_CKPT_AFTER:
+                    t0 = time.perf_counter()
+                    ckpt.save({"p": model.tree(), "o": opt}, ckpt_dir,
+                              P_CKPT_AFTER)
+                    rec["ckpt_s"] = time.perf_counter() - t0
+        rec["routes"] = routes.host()
+        rec["by_tokens"] = len(routes.by_tokens)
+        rec["coordinate"] = list(mesh.coordinate)
+        state = {"p": model.tree(), "o": opt}
+        rec["gaps"] = _p_gaps(state, refs[tag], mesh)
+        if tag == "P1":                  # held against the resumed step
+            rec["digest"] = _p_digest(state)
+        rec["param_bytes"] = sum(t.to_local().numel()
+                                 * t.to_local().element_size()
+                                 for t in model.parameters())
+        rec["opt_bytes"] = sum(
+            t.to_local().numel() * t.to_local().element_size()
+            for k in ("m", "v", "master") for t in tree_leaves(opt[k]))
+        rec["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
+        rec["launches"] = dict(ops.launches)
+        del model, opt, state, batches
+        gc.collect()
+        torch.cuda.empty_cache()     # the next run's ranks share the card
+        rec["s"] = time.perf_counter() - t_run
+        out[tag] = rec
+    return out
+
+
+def p_resume_rank(rank: int, device, seed: int, ckpt_dir: str) -> dict:
+    """Fresh ranks of run P1: the model and AdamW state restored from the
+    checkpoint written after step P_CKPT_AFTER (each rank reading its
+    pieces), then step P_CKPT_AFTER + 1; its loss, grad norm and every
+    leaf's digest."""
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch.inputs import shard_batch
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.launch.sharding import (DEFAULT_RULES, ShardingRules,
+                                             distribute, param_sharding)
+    from repro_torch.launch.steps import build_train_step, opt_state_specs
+    from repro_torch.models import Model, param_shapes
+    from repro_torch.models.layers import tree_map
+
+    mesh = make_process_mesh(M_MESH, M_AXES, device)
+    rules = ShardingRules(DEFAULT_RULES)
+    cfg, tc = p_config("P1"), p_train("P1")
+    specs = {"p": param_sharding(mesh, rules, param_shapes(cfg)),
+             "o": opt_state_specs(cfg, mesh, rules, tc)}
+
+    def empty(s):
+        if not s.shape:                    # the AdamW step: a plain scalar
+            return torch.zeros((), dtype=s.dtype, device=device)
+        return distribute(s.meta(), s.spec, mesh, local=torch.empty(
+            s.shard_shape(), dtype=s.dtype, device=device))
+    t0 = time.perf_counter()
+    state, at = ckpt.restore(tree_map(empty, specs), ckpt_dir, P_CKPT_AFTER,
+                             specs)
+    restore_s = time.perf_counter() - t0
+    model = Model(cfg, state["p"]).trainable()
+    opt = state["o"]
+    b = p_batches(cfg, seed)[P_CKPT_AFTER]
+    batch = shard_batch({k: torch.from_numpy(v).to(device)
+                         for k, v in b.items()}, mesh)
+    model, opt, m = build_train_step(cfg, tc, rules, mesh)(model, opt, batch)
+    return {"at": at, "restore_s": restore_s, "loss": float(m["loss"]),
+            "grad_norm": float(m["grad_norm"]),
+            "digest": _p_digest({"p": model.tree(), "o": opt})}
+
+
+def p_plan_bytes(cfg, tag: str) -> dict:
+    """The plan's parameter and optimizer bytes a position of the (2, 2)
+    mesh (``dryrun.plan_cell``'s ``argument_parts``: the shard shapes of
+    the specs)."""
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.launch.inputs import param_specs_sharded
+    from repro_torch.launch.plan import tree_bytes
+    from repro_torch.launch.sharding import DEFAULT_RULES, ShardingRules
+    from repro_torch.launch.steps import opt_state_specs
+
+    mesh = make_mesh(M_MESH, M_AXES, ["meta"] * M_PROCS)
+    rules = ShardingRules(DEFAULT_RULES)
+    ospec = opt_state_specs(cfg, mesh, rules, p_train(tag))
+    return {"params": tree_bytes(param_specs_sharded(cfg, mesh, rules)),
+            "optimizer": tree_bytes({k: v for k, v in ospec.items()
+                                     if k != "step"})}
+
+
+def p_readings(tag: str, ranks: list, one: dict) -> dict:
+    """One run of phase P: the gaps, both runs' times, the ranks' bytes
+    beside the plan's, and for P3 the aux loss both ways and the byte
+    rule's sides."""
+    cfg = p_config(tag)
+    r0 = ranks[0]
+
+    def rel(a, b):
+        return abs(a - b) / abs(b) if b else abs(a - b)
+    for r in ranks:
+        if not np.isfinite(r["loss"] + r["grad_norm"]).all():
+            fail(f"phase {tag}: loss {r['loss']} or grad norm "
+                 f"{r['grad_norm']} not finite")
+    gaps = {"loss": max(rel(a, b) for a, b in zip(r0["loss"], one["loss"])),
+            "grad_norm": max(rel(a, b) for a, b in zip(r0["grad_norm"],
+                                                        one["grad_norm"]))}
+    plan = p_plan_bytes(cfg, tag)
+    rec = {
+        "arch": P_ARCH[tag], "dtype": cfg.dtype, "units": cfg.n_units,
+        "layers": cfg.n_layers, "params": cfg.param_count(),
+        "microbatch": P_RUNS[tag][2], "remat": "full",
+        "mesh": dict(zip(M_AXES, M_MESH)), "batch": P_B, "seq": P_S,
+        "steps": P_STEPS,
+        "loss_sharded": r0["loss"], "loss_unsharded": one["loss"],
+        "grad_norm_sharded": r0["grad_norm"],
+        "grad_norm_unsharded": one["grad_norm"],
+        "gap_metrics": max(gaps.values()), "gap_loss": gaps["loss"],
+        "gap_grad_norm": gaps["grad_norm"],
+        "gap_step1": r0["gaps_step1"],
+        "gap_step1_max": max(r0["gaps_step1"].values()),
+        "gap_leaves": r0["gaps"], "gap_leaves_max": max(r0["gaps"].values()),
+        "collectives_step": r0["collectives_step"],
+        "collective_bytes_step": r0["collective_bytes_step"],
+        "sharded_step_ms": r0["step_ms"], "unsharded_step_ms": one["step_ms"],
+        "peak_device_bytes_per_rank": [r["peak_device_bytes"]
+                                       for r in ranks],
+        "unsharded_peak_device_bytes": one["peak_device_bytes"],
+        "param_bytes_per_rank": [r["param_bytes"] for r in ranks],
+        "opt_bytes_per_rank": [r["opt_bytes"] for r in ranks],
+        "plan_param_bytes": plan["params"],
+        "plan_opt_bytes": plan["optimizer"],
+        "launches": {k: sum(r["launches"].get(k, 0) for r in ranks)
+                     for k in r0["launches"]},
+        "sharded_s": max(r["s"] for r in ranks), "unsharded_s": one["s"]}
+    if cfg.n_experts:
+        rec["aux_sharded"], rec["aux_unsharded"] = r0["aux"], one["aux"]
+        rec["gap_aux"] = rel(r0["aux"], one["aux"])
+        rec["moe_calls"] = len(r0["routes"])
+        rec["moe_by_tokens"] = r0["by_tokens"]
+        rec["moe_weights_gathered"] = len(r0["routes"]) - r0["by_tokens"]
+        rec["routing"] = p_routing(ranks, one)
+    return rec
+
+
+def p_routing(ranks: list, one: dict) -> dict:
+    """The sharded run's routing beside the unsharded run's, step by step:
+    the tokens of a step's MoE calls (its forward's and remat's
+    recomputation's) whose top-k experts differ, the tokens routed, and
+    the unsharded run's largest k-th-less-next margin among those that
+    differ, beside the median margin of every token.  The sharded side's
+    tokens are the data ranks' in order, read on model rank 0."""
+    lead = sorted((r for r in ranks if r["coordinate"][1] == 0),
+                  key=lambda r: r["coordinate"][0])
+    if any(r["route_calls"] != one["route_calls"] for r in lead):
+        fail(f"MoE calls a step {lead[0]['route_calls']} sharded, "
+             f"{one['route_calls']} unsharded")
+    out = {"routing_differs_by_step": [], "routings_by_step": [],
+           "flip_margin_max_by_step": []}
+    start = 0
+    for end in one["route_calls"]:
+        differs, routed, flipped = 0, 0, []
+        for c in range(start, end):
+            a = np.concatenate([r["routes"][c][0] for r in lead])
+            b, _, margin = one["routes"][c]
+            if a.shape != b.shape:
+                fail(f"routing of {a.shape} tokens sharded, {b.shape} "
+                     "unsharded")
+            d = (a != b).any(axis=-1)
+            differs += int(d.sum())
+            routed += a.shape[0]
+            flipped.append(margin[d])
+        flipped = np.concatenate(flipped) if flipped else np.zeros(0)
+        out["routing_differs_by_step"].append(differs)
+        out["routings_by_step"].append(routed)
+        out["flip_margin_max_by_step"].append(
+            float(flipped.max()) if flipped.size else None)
+        start = end
+    out["margin_median"] = float(np.median(np.concatenate(
+        [r[2] for r in one["routes"]])))
+    return out
+
+
+P_TAGS = tuple(P_RUNS)
+
+
+def drive_sharded_train(seed: int, card: str, tags=P_TAGS) -> dict:
+    """Phase P: each run of ``tags`` unsharded on cuda:0 first (its state
+    after the last step saved for the ranks, the model freed), then all of
+    them on ``spmd.card_layout(M_PROCS)`` in one spawn, then P1's
+    checkpoint restored by fresh ranks whose step P_CKPT_AFTER + 1 must
+    equal the first ranks' bit for bit.  Each run held to its bounds
+    (P_TOL; P3's aux loss to P_AUX_TOL, nonzero), its ranks' parameter
+    and optimizer bytes to the plan's."""
+    import torch
+    from repro_torch.launch import spmd
+
+    layout = spmd.card_layout(M_PROCS)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p_")
+    try:
+        refs, ones = {}, {}
+        for tag in tags:
+            refs[tag] = os.path.join(tmp, f"unsharded_{tag}")
+            t0 = time.perf_counter()
+            ones[tag] = p_unsharded(tag, seed, refs[tag])
+            ones[tag]["s"] = time.perf_counter() - t0
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        print(f"phase P: {M_PROCS} processes, backend {layout[0]}, devices "
+              f"{[str(d) for d in layout[1]]}")
+        t0 = time.perf_counter()
+        ranks = spmd.run(p_rank, layout[1], layout[0],
+                         (tuple(tags), seed, refs, ckpt_dir))
+        spawn_s = time.perf_counter() - t0
+        resumed = None
+        if "P1" in tags:
+            t0 = time.perf_counter()
+            resumed = spmd.run(p_resume_rank, layout[1], layout[0],
+                               (seed, ckpt_dir))
+            resume_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"backend": layout[0], "spawn_s": spawn_s, "launches": {}}
+    for tag in tags:
+        r = p_readings(tag, [x[tag] for x in ranks], ones[tag])
+        tol = P_TOL[tag]
+        r["tol"] = tol
+        if tag == "P1":
+            first = [x["P1"]["digest"] for x in ranks]
+            r["resume"] = {
+                "at": resumed[0]["at"], "restore_s": resumed[0]["restore_s"],
+                "s": resume_s, "ckpt_s": ranks[0]["P1"]["ckpt_s"],
+                "loss": resumed[0]["loss"],
+                "grad_norm": resumed[0]["grad_norm"],
+                "bit_equal": all(a["digest"] == b for a, b in
+                                 zip(resumed, first)) and
+                resumed[0]["loss"] == r["loss_sharded"][-1] and
+                resumed[0]["grad_norm"] == r["grad_norm_sharded"][-1]}
+        print(json.dumps({"phase": tag, **r, "card": card}))
+        if r["gap_metrics"] > tol["metrics"]:
+            fail(f"phase {tag}: loss or grad norm off the unsharded run's "
+                 f"by {r['gap_metrics']:.3g}, over {tol['metrics']:.3g}")
+        if r["gap_step1_max"] > tol["step1"]:
+            fail(f"phase {tag}: m or v after step 1 off the unsharded "
+                 f"run's by {r['gap_step1']}, over {tol['step1']:.3g}")
+        if r["gap_leaves_max"] > tol["leaves"]:
+            fail(f"phase {tag}: state off the unsharded run's by "
+                 f"{r['gap_leaves']}, over {tol['leaves']:.3g}")
+        if tag == "P1" and not r["resume"]["bit_equal"]:
+            fail(f"phase P1: the resumed step {P_CKPT_AFTER + 1} differs "
+                 f"from the uninterrupted one: {r['resume']}")
+        if "gap_aux" in r and (r["gap_aux"] > P_AUX_TOL or
+                               not r["aux_sharded"] > 0):
+            fail(f"phase {tag}: aux loss {r['aux_sharded']} sharded, "
+                 f"{r['aux_unsharded']} unsharded, over {P_AUX_TOL:.3g}")
+        if any(b != r["plan_param_bytes"] for b in r["param_bytes_per_rank"]) \
+                or any(b != r["plan_opt_bytes"]
+                       for b in r["opt_bytes_per_rank"]):
+            fail(f"phase {tag}: ranks hold {r['param_bytes_per_rank']} "
+                 f"parameter and {r['opt_bytes_per_rank']} optimizer "
+                 f"bytes, the plan {r['plan_param_bytes']} and "
+                 f"{r['plan_opt_bytes']} a position")
+        if any(r["launches"].values()):
+            fail(f"phase {tag}: the train path launched {r['launches']}")
+        out[tag] = {k: r[k] for k in ("gap_metrics", "gap_step1_max",
+                                      "gap_leaves_max", "sharded_s",
+                                      "unsharded_s")}
+        for k, n in r["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + n
     return out
 
 
@@ -4661,6 +5216,16 @@ def main() -> int:
         for phase in "MNO":
             k[f"launches_{phase.lower()}"] = rec_mn["launches"][phase].get(
                 k["name"], 0)
+    del rec_mn
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launches()         # phase P: the sharded train step
+    t0 = time.perf_counter()
+    rec_p = drive_sharded_train(args.seed, card)
+    print(f"phase P {time.perf_counter() - t0:.1f}s (spawn "
+          f"{rec_p['spawn_s']:.1f}s)")
+    for k in checks:
+        k["launches_p"] = rec_p["launches"].get(k["name"], 0)
     for k in checks:
         other = {tag: k[tag]["mismatches"]
                  for tag in ("wide_check", "shard_shape", "level_model_shape",

@@ -23,6 +23,14 @@ leaves as they are, and a ``"bfloat16"`` leaf in ``|V2`` form as the same
 :class:`AsyncSaver` copies the tree to host memory before its thread
 starts (the caller may then update its tensors in place) and keeps one
 save in flight: the next save waits for the last.
+
+On a process mesh (``DTensor`` leaves) every rank calls :func:`save` or
+``save_async`` alike: each leaf is gathered whole, leaf by leaf (a
+collective every rank joins), and rank 0 alone keeps the host copy and
+writes the files and the manifest, in the same layout, so that the
+checkpoint restores unsharded and the reference reads it.
+:func:`restore` with ``shardings`` on a process mesh gives back
+``DTensor``s: each rank reads each whole leaf and keeps its own piece.
 """
 
 from __future__ import annotations
@@ -45,10 +53,21 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 _NAMES = {v: k for k, v in _DTYPES.items()}
 
 
-def _host(t) -> torch.Tensor:
-    """A host copy of ``t`` that later in-place updates do not touch."""
-    t = torch.as_tensor(t).detach()
-    return t.to("cpu", copy=True)
+def _host(t) -> torch.Tensor | None:
+    """A host copy of ``t`` that later in-place updates do not touch; of
+    a ``DTensor``, the whole tensor on rank 0 and None on the others."""
+    t = _whole(t)
+    return None if t is None else t.to("cpu", copy=True)
+
+
+def _whole(t) -> torch.Tensor | None:
+    """``t`` itself, detached; a ``DTensor`` gathered whole (every rank
+    joins), kept on rank 0 only (None on the others)."""
+    if hasattr(t, "full_tensor"):
+        import torch.distributed as dist
+        t = t.detach().full_tensor()
+        return t if dist.get_rank() == 0 else None
+    return torch.as_tensor(t).detach()
 
 
 def _dtype_name(t: torch.Tensor) -> str:
@@ -65,13 +84,16 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def save(tree, directory: str | pathlib.Path, step: int) -> pathlib.Path:
-    """Synchronous save of a nested dict of tensors.  Returns the
-    checkpoint dir."""
+    """Synchronous save of a nested dict of tensors (on a process mesh,
+    see the module docstring).  Returns the checkpoint dir."""
     d = pathlib.Path(directory) / f"step_{step:08d}"
+    pairs = [(name, _whole(leaf)) for name, leaf in tree_paths(tree)]
+    if any(t is None for _, t in pairs):
+        return d                                  # not rank 0 of a mesh
     d.mkdir(parents=True, exist_ok=True)
     manifest = {"step": step, "leaves": {}}
-    for name, leaf in tree_paths(tree):
-        t = torch.as_tensor(leaf).detach().cpu().contiguous()
+    for name, t in pairs:
+        t = t.cpu().contiguous()
         fn = f"{name.replace('/', '_')}__full.npy"
         np.save(d / fn, _to_numpy(t))
         manifest["leaves"][name] = {
@@ -95,6 +117,8 @@ class AsyncSaver:
         host_tree = {}
         for name, leaf in tree_paths(tree):
             host_tree[name] = _host(leaf)
+        if any(t is None for t in host_tree.values()):
+            return                                # not rank 0 of a mesh
 
         def work():
             self.last_path = save(host_tree, directory, step)
@@ -130,15 +154,19 @@ def latest_step(directory) -> int | None:
     return max(steps) if steps else None
 
 
-def _load(path: pathlib.Path, dtype: str) -> torch.Tensor:
-    arr = np.load(path)
+def _load(path: pathlib.Path, dtype: str,
+          mmap: bool = False) -> torch.Tensor:
+    """The leaf in ``path`` (``mmap``: mapped, not read, so that a caller
+    that cuts a piece of it reads only that piece)."""
+    arr = np.load(path, mmap_mode="r" if mmap else None)
     if dtype == "bfloat16":
         if arr.dtype.itemsize != 2 or arr.dtype.kind not in "uiV":
             raise ValueError(f"{path.name}: a bfloat16 leaf stored as "
                              f"{arr.dtype}")
-        return torch.from_numpy(
-            np.asarray(arr, order="C").view(np.uint16)).view(torch.bfloat16)
-    t = torch.from_numpy(np.asarray(arr, order="C"))
+        bits = arr.view(np.uint16) if mmap else \
+            np.asarray(arr, order="C").view(np.uint16)
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    t = torch.from_numpy(arr if mmap else np.asarray(arr, order="C"))
     if dtype not in _DTYPES or t.dtype != _DTYPES[dtype]:
         raise ValueError(f"{path.name}: manifest dtype {dtype}, file "
                          f"{arr.dtype}")
@@ -153,8 +181,13 @@ def restore(tree_like, directory, step: int | None = None,
     ``tree_like`` leaf's device, or with ``shardings`` (a tree of
     :class:`~repro_torch.launch.sharding.Sharded` of the same structure,
     as ``param_sharding`` and ``opt_state_specs`` give) on its spec's mesh
-    device, once the spec is checked against the leaf's shape.  A mesh of
-    distinct devices raises ``NotImplementedError``."""
+    device, once the spec is checked against the leaf's shape: on a
+    process mesh, where the ``tree_like`` leaf is a ``DTensor``, a
+    ``DTensor`` laid out by the spec (this rank's piece).
+    A mesh of distinct devices raises ``NotImplementedError``."""
+    from repro_torch.core.mesh import ProcessMesh
+    from repro_torch.launch.sharding import distribute, local_shard
+
     d = pathlib.Path(directory)
     if step is None:
         step = latest_step(d)
@@ -176,17 +209,24 @@ def restore(tree_like, directory, step: int | None = None,
         if meta["dtype"] != want:
             raise ValueError(f"{name}: dtype {meta['dtype']} in the "
                              f"checkpoint, {want} expected")
-        t = _load(cd / meta["file"], meta["dtype"])
+        s = specs[i] if specs is not None else None
+        piece = s is not None and isinstance(s.mesh, ProcessMesh) and \
+            hasattr(ref, "to_local")
+        t = _load(cd / meta["file"], meta["dtype"], mmap=piece)
         if tuple(t.shape) != tuple(ref.shape):
             raise ValueError(f"{name}: shape {tuple(t.shape)} in the "
                              f"checkpoint, {tuple(ref.shape)} expected")
         dev = ref.device
-        if specs is not None:
-            s = specs[i]
+        if s is not None:
             if tuple(s.shape) != tuple(t.shape):
                 raise ValueError(f"{name}: sharding of shape {s.shape}, "
                                  f"leaf {tuple(t.shape)}")
             s.shard_shape()      # raises if the spec does not split the leaf
             dev = s.mesh.device()
+            if piece:            # this rank reads its piece alone (a copy:
+                # the mapped file is read-only)
+                out.append(distribute(t, s.spec, s.mesh, local=local_shard(
+                    t, s.spec, s.mesh).to(dev, copy=True).contiguous()))
+                continue
         out.append(t.to(dev))
     return tree_unflatten(tree_like, out), step

@@ -23,7 +23,10 @@ versions, with their epochs, so the converted store neither relearns nor
 rebuilds them.
 
 ``shard_params(params, mesh, rules)`` lays a model's parameters out over
-a process mesh, each leaf a ``DTensor`` by its ``param_sharding`` spec.
+a process mesh, each leaf a ``DTensor`` by its ``param_sharding`` spec;
+``shard_opt_state(state, mesh, rules, cfg)`` lays out an AdamW state
+(numpy, or the port's unsharded one) by ``steps.opt_state_specs``, and
+``tree_to_numpy`` gathers any such tree back whole.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ from repro_torch.models.layers import tree_paths, tree_unflatten
 from repro_torch.models.model import Model, param_shapes
 
 __all__ = ["store_from_numpy", "params_from_numpy", "opt_state_from_numpy",
-           "shard_params"]
+           "shard_params", "shard_opt_state", "tree_to_numpy"]
 
 
 def _model(m: dict | None, delta: int) -> PLRModel | None:
@@ -212,3 +215,39 @@ def shard_params(params, mesh, rules, cfg: ModelConfig | None = None) -> Model:
                 dist.barrier()
         out.append(distribute(stand_in, want.spec, mesh, local=piece))
     return Model(cfg, tree_unflatten(specs, out))
+
+
+def shard_opt_state(state: dict, mesh, rules, cfg: ModelConfig) -> dict:
+    """The AdamW state on the process ``mesh``: ``m``, ``v`` and, when
+    present, ``master`` each a tree of float32 ``DTensor``s laid out as
+    their parameters (``steps.opt_state_specs``), ``step`` a plain int32
+    scalar on the mesh's device.  ``state`` is the reference's (numpy
+    leaves) or the port's unsharded one (tensors); every rank holds the
+    same and keeps its own piece of each leaf."""
+    if not isinstance(state["step"], torch.Tensor):       # numpy
+        state = opt_state_from_numpy(state, cfg, "cpu")
+    dev = mesh.device()
+    specs = param_sharding(mesh, rules, param_shapes(cfg))
+    out = {"step": torch.as_tensor(state["step"]).to(dev, torch.int32)}
+    for k in ("m", "v", "master"):
+        if k in state:
+            got = dict(tree_paths(state[k]))
+            out[k] = tree_unflatten(specs, [
+                distribute(got[name], s.spec, mesh,
+                           local=local_shard(got[name], s.spec, mesh)
+                           .to(dev, torch.float32).contiguous())
+                for name, s in tree_paths(specs)])
+    return out
+
+
+def tree_to_numpy(tree):
+    """A nested dict of tensors or ``DTensor``s (each gathered whole: a
+    collective every rank of the mesh joins) as numpy, floats as float32
+    (bfloat16 exactly)."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    t = tree.full_tensor() if hasattr(tree, "full_tensor") else tree
+    t = t.detach()
+    if t.is_floating_point():
+        t = t.float()
+    return np.array(t.cpu().numpy())          # a copy, never a view

@@ -25,9 +25,11 @@ the reference's keys; what each means here is in ``launch/README.md``:
   accessed`` (operand and result bytes an aten op) of the whole job,
   divided evenly over the positions (``cost_split``);
 - ``collectives``: the parameter and gradient traffic the specs imply
-  (``collectives_scope``); for a decode or prefill cell, every
-  collective of the step run sharded on
-  ``DTensor``s at one position of a fake process group
+  (``collectives_scope``); for a decode or prefill cell, and a train cell
+  of the blocks whose train step runs on a process mesh
+  (``steps.MESH_TRAIN_BLOCKS``) on a mesh of two axes
+  (:func:`mesh_trains`), every collective of the step run sharded
+  on ``DTensor``s at one position of a fake process group
   (:func:`sharded_plan`), which also gives its ``temp_bytes``.
 
 The store cell (``--store``) runs: the range-partitioned state of the
@@ -64,6 +66,7 @@ from repro_torch.core.distributed import (KEY_SENTINEL, DistStoreConfig,
 from repro_torch.core.mesh import Mesh
 from repro_torch.kernels import ops
 from repro_torch.models import Model, init_caches
+from repro_torch.models.layers import tree_map
 from repro_torch.models.model import _dtype
 
 from .inputs import _bspec, input_specs, shard_caches
@@ -72,10 +75,11 @@ from .plan import (ShardMeter, StepMeter, fake_process_group,
                    param_collectives, tree_bytes)
 from .sharding import (DEFAULT_RULES, Sharded, ShardingRules, _axes_of,
                        distribute, logical_to_spec)
-from .steps import (TrainConfig, build_prefill_step, build_serve_step,
-                    build_train_step, opt_state_specs)
+from .steps import (MESH_TRAIN_BLOCKS, TrainConfig, build_prefill_step,
+                    build_serve_step, build_train_step, opt_state_specs)
 
-__all__ = ["run_cell", "plan_cell", "sharded_plan", "run_store_cell", "sweep", "main", "store_row",
+__all__ = ["run_cell", "plan_cell", "sharded_plan", "mesh_trains",
+           "run_store_cell", "sweep", "main", "store_row",
            "store_keys", "store_probes", "STORE_GETS"]
 
 STORE_GETS = 3            # timed GETs of the store cell
@@ -232,8 +236,8 @@ def plan_cell(cfg, shape: ShapeSpec, mesh: Mesh, *, res: dict | None = None,
     try:
         with StepMeter() as meter, FlopCounterMode(display=False) as fc:
             outputs = run()
-        if shape.kind != "train":
-            sharded = sharded_plan(cfg, shape, mesh, rules)
+        if shape.kind != "train" or mesh_trains(cfg, mesh):
+            sharded = sharded_plan(cfg, shape, mesh, rules, tcfg)
     finally:
         att.FLASH_KV_CHUNK = old_chunk
     res["compile_s"] = round(time.time() - t1, 2)
@@ -270,24 +274,51 @@ def plan_cell(cfg, shape: ShapeSpec, mesh: Mesh, *, res: dict | None = None,
     return res
 
 
+def mesh_trains(cfg, mesh) -> bool:
+    """Whether a train cell of ``cfg`` on ``mesh`` is planned on DTensor
+    placements: its train step runs on a process mesh (every block in
+    ``steps.MESH_TRAIN_BLOCKS``), and the mesh has two axes.  On the
+    (2, 16, 16) mesh DTensor's redistribution planner (torch 2.13) spends
+    over ten minutes of CPU on the train step's three-axis layouts
+    (mixtral-8x22b, one unit), so those cells keep the parameters' and
+    gradients' count."""
+    return len(mesh.shape) == 2 and {
+        st.block for st in cfg.prologue + cfg.pattern} <= \
+        set(MESH_TRAIN_BLOCKS)
+
+
 def sharded_plan(cfg, shape: ShapeSpec, mesh: Mesh,
-                 rules: ShardingRules) -> dict:
-    """Position 0's run of the prefill or decode step of ``shape`` sharded
-    as on a process mesh of ``mesh``'s shape: a ``fake_process_group`` of
-    ``mesh.size`` ranks in this process, every parameter, cache and input
-    a ``DTensor`` of ``meta`` pieces laid out by its spec, the step run
-    once under :class:`~repro_torch.launch.plan.ShardMeter`.  Returns the
-    peak bytes of its local temporaries (``temp_bytes``) and the result
-    bytes (``collectives``) and number (``counts``) of every collective
-    DTensor issued, by kind."""
+                 rules: ShardingRules, tcfg: TrainConfig | None = None) -> dict:
+    """Position 0's run of the train, prefill or decode step of ``shape``
+    sharded as on a process mesh of ``mesh``'s shape: a
+    ``fake_process_group`` of ``mesh.size`` ranks in this process, every
+    parameter, optimizer leaf, cache and input a ``DTensor`` of ``meta``
+    pieces laid out by its spec, the step (``tcfg``'s train step for a
+    train cell) run once under :class:`~repro_torch.launch.plan.ShardMeter`.
+    Returns the peak bytes of its local temporaries (``temp_bytes``) and
+    the result bytes (``collectives``) and number (``counts``) of every
+    collective DTensor issued, by kind: in a train step, the backward's
+    and, under remat, the recomputed forward's too."""
     with fake_process_group(mesh.size):
         pm = make_process_mesh(mesh.shape, mesh.axis_names, "meta")
         specs = input_specs(cfg, shape, mesh, rules)
         params = shard_params(Model(cfg, _meta_tree(specs[0])), pm, rules)
-        batch = {k: distribute(s.meta(), s.spec, pm, local=torch.empty(
-            s.shard_shape(), dtype=s.dtype, device="meta"))
-            for k, s in specs[-1].items() if k != "labels"}
-        if shape.kind == "decode":
+        def piece(s: Sharded):
+            return distribute(s.meta(), s.spec, pm, local=torch.empty(
+                s.shard_shape(), dtype=s.dtype, device="meta"))
+
+        batch = {k: piece(s) for k, s in specs[-1].items()
+                 if k != "labels" or shape.kind == "train"}
+        if shape.kind == "train":
+            ospec = opt_state_specs(cfg, mesh, rules, tcfg)
+            opt = {k: torch.zeros((), dtype=torch.int32, device="meta")
+                   if k == "step" else tree_map(piece, v)
+                   for k, v in ospec.items()}
+            step = build_train_step(cfg, tcfg, rules, pm)
+
+            def run():
+                step(params, opt, batch)
+        elif shape.kind == "decode":
             caches = shard_caches(cfg, shape.global_batch, shape.seq_len, pm,
                                   rules)
             step = build_serve_step(cfg, rules, pm)

@@ -51,12 +51,12 @@ import torch
 from repro_torch.core.mesh import Mesh, ProcessMesh
 
 __all__ = ["P", "ShardingRules", "DEFAULT_RULES", "Sharded", "rules_ctx",
-           "current_rules", "constraint", "param_constraint",
+           "current_rules", "backward_in_ctx", "constraint", "param_constraint",
            "logical_to_spec", "param_sharding", "shard_shape", "placements",
            "distribute", "local_shard", "index_copy_", "embedding",
-           "laid_out_as", "process_mesh", "split_axes", "whole_over",
+           "cross_entropy", "by_heads", "on_pieces", "laid_out_as", "process_mesh", "split_axes", "whole_over",
            "piece_span", "rank_index", "gather_ranks", "sum_ranks",
-           "all_to_all", "from_pieces"]
+           "reduce_ranks", "grad_summed", "all_to_all", "from_pieces"]
 
 # logical axis -> mesh axis (or None = replicated).  "batch" maps to the
 # combined (pod, data) axes; "embed"/"heads"/"mlp"/"vocab"/"experts" are the
@@ -107,8 +107,43 @@ class ShardingRules(dict):
 _tls = threading.local()
 
 
+def _state() -> tuple:
+    """This thread's (rules, mesh axis sizes, mesh): its :func:`rules_ctx`'s
+    or, on a thread with none, while autograd runs the backward of a loss
+    that went through :func:`backward_in_ctx`, that loss's."""
+    here = (getattr(_tls, "rules", None), getattr(_tls, "mesh_axes", None),
+            getattr(_tls, "mesh", None))
+    task = getattr(_tls, "backward", None)
+    if here == (None, None, None) and task is not None and \
+            task[0] == torch._C._current_graph_task_id():
+        return task[1]
+    return here
+
+
 def current_rules():
-    return getattr(_tls, "rules", None), getattr(_tls, "mesh_axes", None)
+    return _state()[:2]
+
+
+def backward_in_ctx(loss):
+    """``loss``, whose backward runs under the current :func:`rules_ctx` of
+    a process mesh on whatever thread autograd runs it.  On a card that is
+    autograd's device thread: autograd hands it the caller's dispatch
+    state (DTensor's implicit replication among it), but not Python's
+    thread-locals, so a layer recomputed there (remat), or a hand
+    collective's backward, would run without the rules and the mesh.  A
+    hook on ``loss``, the backward's first step, hands them to that
+    thread for this backward alone: :func:`_state` reads them only while
+    autograd runs the graph task that set them, so a later backward on
+    the thread (an unsharded one, say) sees none of them."""
+    state = _state()
+    if not isinstance(state[2], ProcessMesh) or not loss.requires_grad:
+        return loss
+
+    def enter(grad):
+        _tls.backward = (torch._C._current_graph_task_id(), state)
+        return grad
+    loss.register_hook(enter)
+    return loss
 
 
 @contextlib.contextmanager
@@ -123,9 +158,15 @@ def rules_ctx(rules: ShardingRules | None, mesh: Mesh | None = None):
     try:
         with contextlib.ExitStack() as stack:
             if isinstance(_tls.mesh, ProcessMesh):
-                from torch.distributed.tensor.experimental import \
-                    implicit_replication
-                stack.enter_context(implicit_replication())
+                # DTensor's implicit replication, the flag put back as it
+                # was (torch's ``implicit_replication`` clears it on exit,
+                # which would end an outer context's too: a recomputation
+                # in the backward enters this context again)
+                from torch.distributed.tensor import DTensor
+                disp = DTensor._op_dispatcher
+                stack.callback(setattr, disp, "_allow_implicit_replication",
+                               disp._allow_implicit_replication)
+                disp._allow_implicit_replication = True
             yield
     finally:
         _tls.rules, _tls.mesh_axes, _tls.mesh = old
@@ -332,6 +373,132 @@ def embedding(tokens, table):
                               stride=_contiguous(shape))
 
 
+def cross_entropy(logits, labels, softcap: float = 0.0):
+    """Mean token NLL in f32 of DTensor ``logits`` (B, S, V) against
+    ``labels`` (B, S), by hand: DTensor's own strategy gathers the gold
+    logit from a vocab-split tensor through the same masked partial sum as
+    :func:`embedding`'s, and fails the same way.  Each rank works on its
+    piece of the logits (``softcap`` applied first, as in the plain
+    version).  The log-sum-exp over a split vocabulary is each piece's max
+    reduced by max, then its summed exp reduced by sum; the gold logit is
+    taken from the piece that holds it (zeros elsewhere) and reduced by
+    sum; the loss is the sum over the rows a rank holds, reduced over the
+    axes splitting the rows, over the global token count.  Its backward
+    is the plain version's, ``softmax - onehot`` over the count, on each
+    rank's piece with no collective.  Returns a replicated scalar
+    DTensor."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = process_mesh()
+    logits = whole_over(logits, ())                 # no partial sum left
+    want = tuple(p if p.is_shard() and p.dim < 2 else Replicate()
+                 for p in logits.placements)
+    if not isinstance(labels, DTensor):
+        raise TypeError("plain labels under a process mesh: lay them out "
+                        "with inputs.shard_batch")
+    lab = labels.redistribute(mesh.device_mesh, want).to_local()
+    lg = logits.to_local().float()
+    if softcap:
+        lg = torch.tanh(lg / softcap) * softcap
+    vaxes = split_axes(logits, 2)
+    raxes = tuple(sorted(split_axes(logits, 0) + split_axes(logits, 1)))
+    count = labels.shape[0] * labels.shape[1]
+    loss = _Nll.apply(lg, lab.long(), piece_span(logits, 2)[0], vaxes,
+                      raxes, count)
+    return from_pieces(loss, (Replicate(),) * len(mesh.shape), ())
+
+
+class _Nll(torch.autograd.Function):
+    """:func:`cross_entropy` on one rank's piece ``lg`` (b, s, v) of the
+    logits, whose vocabulary starts at ``start``."""
+
+    @staticmethod
+    def forward(ctx, lg, lab, start, vaxes, raxes, count):
+        m = lg.amax(dim=-1)
+        if vaxes:
+            m = reduce_ranks(m, vaxes, "max")
+        se = torch.exp(lg - m[..., None]).sum(dim=-1)
+        if vaxes:
+            se = reduce_ranks(se, vaxes)
+        logz = m + torch.log(se)
+        idx = lab - start
+        ok = (idx >= 0) & (idx < lg.shape[-1])
+        idx = idx.clamp(0, lg.shape[-1] - 1)
+        gold = torch.gather(lg, -1, idx[..., None])[..., 0] * ok
+        if vaxes:
+            gold = reduce_ranks(gold, vaxes)
+        total = torch.sum(logz - gold)
+        if raxes:
+            total = reduce_ranks(total, raxes)
+        ctx.save_for_backward(lg, logz, idx, ok)
+        ctx.count = count
+        return total / count
+
+    @staticmethod
+    def backward(ctx, g):
+        lg, logz, idx, ok = ctx.saved_tensors
+        g = g / ctx.count
+        grad = g * torch.exp(lg - logz[..., None])
+        grad.scatter_add_(-1, idx[..., None],
+                          torch.where(ok, -g, 0.0)[..., None].to(grad.dtype))
+        return grad, None, None, None, None, None
+
+
+def by_heads(t, shape: tuple):
+    """``t.reshape(shape)``, where one dimension of ``t`` is cut in two
+    (H * hd into heads of hd, or H heads into KV groups of g).  On a
+    DTensor outside inference mode, whose cut dimension is split over a
+    count of positions that does not divide the first of the two
+    (qwen2-0.5b's 14 heads, or mixtral's 8 KV groups, on a "model" axis of
+    16), that split is gathered whole first, as GSPMD gathers a split that
+    does not divide: DTensor's reshape is then a strict view and refuses
+    to cut unevenly (inside inference mode it copies)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor) and not torch.is_inference_mode_enabled():
+        d = next(i for i, (a, b) in enumerate(zip(t.shape, shape)) if a != b)
+        n = math.prod(t.device_mesh.shape[a] for a in split_axes(t, d))
+        if shape[d] % n:
+            t = whole_over(t, (d,))
+    return t.reshape(shape)
+
+
+def on_pieces(lead, others: tuple, dims: tuple):
+    """For work that runs independently along ``dims`` (a batch and heads):
+    when ``lead`` is a DTensor outside inference mode split only on
+    ``dims``, and each of ``others`` (of ``lead``'s rank) can be laid out
+    alike, returns (the local pieces of ``lead`` and of ``others`` so laid
+    out, ``wrap``), ``wrap(local, shape)`` making a result of global
+    ``shape`` laid out as ``lead`` from this rank's piece.  Else None.
+
+    DTensor's strategies would run such work (attention's products) as
+    batched products, whose flatten of two split batch dimensions torch
+    2.11 refuses outside inference mode; on the pieces each rank runs its
+    own batch rows and heads, with no collective."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(lead, DTensor) or torch.is_inference_mode_enabled():
+        return None
+    if any(p.is_partial() or p.is_shard() and p.dim not in dims
+           for p in lead.placements):
+        return None
+    sizes = lead.device_mesh.shape
+    for t in others:
+        if not isinstance(t, DTensor) or t.ndim != lead.ndim:
+            return None
+        for d in dims:
+            n = math.prod(sizes[a] for a in split_axes(lead, d))
+            if t.shape[d] % n:
+                return None
+    pieces = [lead.to_local()] + [laid_out_as(whole_over(t, ()), lead)
+                                  .to_local() for t in others]
+
+    def wrap(local, shape):
+        return from_pieces(local.contiguous(), tuple(lead.placements),
+                           tuple(shape))
+    return pieces, wrap
+
+
 def laid_out_as(t, ref):
     """``t`` redistributed to the placements of the DTensor ``ref``, a
     tensor of the same rank whose dimensions mean the same (a layout
@@ -348,7 +515,7 @@ def laid_out_as(t, ref):
 def process_mesh() -> ProcessMesh:
     """The process mesh of the current ``rules_ctx``; TypeError outside
     one."""
-    mesh = getattr(_tls, "mesh", None)
+    mesh = _state()[2]
     if not isinstance(mesh, ProcessMesh):
         raise TypeError("a DTensor op outside rules_ctx of its process "
                         "mesh")
@@ -410,15 +577,54 @@ def gather_ranks(local: torch.Tensor, axes: tuple) -> torch.Tensor:
     return from_pieces(local[None], places, shape).full_tensor()
 
 
-def sum_ranks(local: torch.Tensor, axes: tuple) -> torch.Tensor:
+def sum_ranks(local: torch.Tensor, axes: tuple,
+              partial_grad: bool = False) -> torch.Tensor:
     """The sum of every rank's ``local`` over the mesh axes ``axes``
     (indices), a plain tensor: an all-reduce of the functional
-    collectives, as :func:`gather_ranks`."""
+    collectives, as :func:`gather_ranks`.  Its backward hands each rank
+    the gradient of the sum as that rank sees it, when every rank reads
+    the sum alike (an aux loss); with ``partial_grad`` each rank reads it
+    its own way (its own slice of a product), so the backward sums the
+    ranks' gradients (an all-reduce)."""
     from torch.distributed.tensor import Partial, Replicate
 
-    places = tuple(Partial() if i in axes else Replicate()
+    n = len(process_mesh().shape)
+    places = tuple(Partial() if i in axes else Replicate() for i in range(n))
+    grad = tuple(Partial() if i in axes else Replicate()
+                 for i in range(n)) if partial_grad else None
+    return from_pieces(local, places, tuple(local.shape)).full_tensor(
+        grad_placements=grad)
+
+
+def grad_summed(local: torch.Tensor, axes: tuple) -> torch.Tensor:
+    """``local`` itself, whose gradient is summed over the mesh axes
+    ``axes`` (indices) in the backward: the entry of a value that every
+    rank of those axes holds alike into work each does its own share of
+    (each rank's experts), so that each then holds the whole gradient."""
+    return _GradSummed.apply(local, tuple(axes)) if axes else local
+
+
+class _GradSummed(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, axes):
+        ctx.axes = axes
+        return local.view_as(local)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_ranks(g.contiguous(), ctx.axes), None
+
+
+def reduce_ranks(local: torch.Tensor, axes: tuple, op: str = "sum"):
+    """The ``op`` ("sum" or "max") of every rank's ``local`` over the mesh
+    axes ``axes`` (indices), a plain tensor, with no backward: an
+    all-reduce of the functional collectives, as :func:`sum_ranks`."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    places = tuple(Partial(op) if i in axes else Replicate()
                    for i in range(len(process_mesh().shape)))
-    return from_pieces(local, places, tuple(local.shape)).full_tensor()
+    with torch.no_grad():
+        return from_pieces(local, places, tuple(local.shape)).full_tensor()
 
 
 def all_to_all(local: torch.Tensor, axis: int) -> torch.Tensor:
@@ -427,16 +633,32 @@ def all_to_all(local: torch.Tensor, axis: int) -> torch.Tensor:
     ``i``; returns the chunks this rank received, in position order, as
     one tensor of ``local``'s shape.  Torch's functional all-to-all (so
     ``spmd.stage_through_host`` stages it and ``plan.ShardMeter`` counts
-    it)."""
+    it).  Its backward is the same all-to-all of the gradient, which
+    sends each chunk's gradient back to the rank it came from (written
+    here: torch 2.11's functional all-to-all has no autograd formula)."""
+    if local.shape[0] % process_mesh().shape[axis]:
+        raise ValueError(f"{local.shape[0]} rows in "
+                         f"{process_mesh().shape[axis]} chunks")
+    return _AllToAll.apply(local, axis)
+
+
+def _all_to_all(local: torch.Tensor, axis: int) -> torch.Tensor:
     from torch.distributed import _functional_collectives as funcol
 
-    mesh = process_mesh()
-    if local.shape[0] % mesh.shape[axis]:
-        raise ValueError(f"{local.shape[0]} rows in {mesh.shape[axis]} "
-                         "chunks")
     out = funcol.all_to_all_single(local.contiguous(), None, None,
-                                   (mesh.device_mesh, axis))
+                                   (process_mesh().device_mesh, axis))
     return funcol.wait_tensor(out)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, axis):
+        ctx.axis = axis
+        return _all_to_all(local, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.axis), None
 
 
 def from_pieces(local: torch.Tensor, places: tuple, shape: tuple):
@@ -453,7 +675,7 @@ def _place(x: torch.Tensor, spec: P) -> torch.Tensor:
     """``x`` itself, once ``spec`` is checked against it and the current
     mesh (none: nothing to check); on a process mesh, ``x`` laid out by
     ``spec``."""
-    mesh = getattr(_tls, "mesh", None)
+    mesh = _state()[2]
     if mesh is None:
         return x
     if isinstance(mesh, ProcessMesh):

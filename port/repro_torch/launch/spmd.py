@@ -24,12 +24,18 @@ one card a rank over NCCL when there are enough, else every rank on
 ``cuda:0`` over gloo (NCCL refuses two ranks on one card).  The caller
 chooses; nothing here picks the CPU.
 
-Under gloo, a process on a card stages the collectives DTensor issues
-through host memory itself (:func:`stage_through_host`): each card tensor
-is copied to the host, reduced or gathered there by gloo, and copied
-back.  Gloo's own path for card tensors is not used: in torch 2.11 the
-first of DTensor's functional collectives on it (an all-gather) ended
-the process with a segmentation fault on an H100.
+Under gloo, every process stages the functional collectives (DTensor's
+and the port's own) through host memory itself
+(:func:`stage_through_host`): each tensor is copied to the host, reduced
+or gathered there by gloo's all-reduce and ``all_gather_into_tensor``
+into one buffer, and copied back.  Gloo's own path for card tensors is
+not used: in torch 2.11 the first of DTensor's functional collectives on
+it (an all-gather) ended the process with a segmentation fault on an
+H100.  Nor, on the CPU, are gloo's all-to-all and its list-of-tensors
+all-gather: a rank of a CPU test once died with ``malloc(): unaligned
+tcache chunk detected`` on that path.  (DTensor's shard all-to-all on a
+CPU mesh is its own fallback, an all-gather and a chunk, which is staged
+so too.)
 """
 
 from __future__ import annotations
@@ -63,10 +69,13 @@ def _group(name):
 
 
 def _host(x: torch.Tensor) -> torch.Tensor:
-    """A host copy of ``x``; bf16 and f16 as f32, so that gloo reduces in
-    f32 (a sum of two ranks' values then rounds once, as on the card)."""
-    x = x.detach().contiguous().cpu()
-    return x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+    """A host copy of ``x`` (never ``x`` itself: gloo reduces in place,
+    and a functional collective leaves its input as it was); bf16 and f16
+    as f32, so that gloo reduces in f32 (a sum of two ranks' values then
+    rounds once, as on the card)."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return x.detach().float().cpu()
+    return x.detach().to("cpu", copy=True).contiguous()
 
 
 def _op(reduce_op: str):
@@ -102,6 +111,17 @@ def _reduce_scatter(input, reduce_op, group_size, group_name):
     return x.chunk(group_size)[r].to(input.device, input.dtype)
 
 
+def _gathered(x: torch.Tensor, pg, n: int) -> torch.Tensor:
+    """Every rank's host tensor ``x`` stacked in rank order, (n, *x.shape),
+    gathered into one buffer (``all_gather_into_tensor``, as
+    :func:`_all_gather`; gloo's list-of-tensors all-gather is not used)."""
+    import torch.distributed as dist
+    flat = x.reshape((1,) + tuple(x.shape)).contiguous()   # gloo: dim 0
+    out = flat.new_empty((n,) + tuple(x.shape))
+    dist.all_gather_into_tensor(out, flat, group=pg)
+    return out
+
+
 def _all_to_all(input, output_split_sizes, input_split_sizes, group_name):
     """Equal splits of dimension 0 only, through an all-gather of every
     rank's input (gloo has no all-to-all on every build)."""
@@ -110,9 +130,7 @@ def _all_to_all(input, output_split_sizes, input_split_sizes, group_name):
     n = pg.size()
     if len(set(input_split_sizes) | set(output_split_sizes)) > 1:
         raise NotImplementedError("uneven all-to-all splits")
-    x = _host(input)
-    parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x, group=pg)
+    parts = _gathered(_host(input), pg, n)
     r = dist.get_group_rank(pg, dist.get_rank())
     out = torch.cat([p.chunk(n)[r] for p in parts])
     return out.to(input.device, input.dtype)
@@ -120,12 +138,9 @@ def _all_to_all(input, output_split_sizes, input_split_sizes, group_name):
 
 def _shard_dim_alltoall(input, gather_dim, shard_dim, group_name):
     import torch.distributed as dist
-    x = _host(input)
     pg = _group(group_name)
     n = pg.size()
-    parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x, group=pg)
-    whole = torch.cat(parts, dim=gather_dim)
+    whole = torch.cat(list(_gathered(_host(input), pg, n)), dim=gather_dim)
     r = dist.get_group_rank(pg, dist.get_rank())
     piece = whole.chunk(n, dim=shard_dim)[r].contiguous()
     return piece.to(input.device, input.dtype)
@@ -137,7 +152,8 @@ def stage_through_host(key: str = "CUDA") -> None:
     group's gloo collectives: what DTensor's redistributions issue
     (all-gather, all-reduce, reduce-scatter, all-to-all) and its shard
     all-to-all.  Each returns a finished tensor, so waiting on it is a
-    no-op.  For a process of this module's running under gloo."""
+    no-op.  :func:`run` installs it in every gloo process, for its
+    device's key."""
     if key in [k for k, _ in _LIBS]:
         return
     c10d = torch.library.Library("_c10d_functional", "IMPL")
@@ -157,8 +173,8 @@ def _child(rank: int, fn, devices: list, backend: str, tmp: str,
     dev = torch.device(devices[rank])
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-        if backend == "gloo":
-            stage_through_host("CUDA")
+    if backend == "gloo" and dev.type in ("cpu", "cuda"):
+        stage_through_host(dev.type.upper())
     store = dist.FileStore(os.path.join(tmp, "store"), len(devices))
     kw = {"device_id": dev} if backend == "nccl" else {}
     dist.init_process_group(backend, store=store, rank=rank,

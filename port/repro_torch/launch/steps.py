@@ -13,8 +13,14 @@ when the step is built.  On a process mesh (``core.mesh.ProcessMesh``,
 one process a position) the serve and prefill steps run sharded: the
 parameters, caches and batch are ``DTensor``s (``convert.shard_params``,
 ``inputs.shard_caches``, ``inputs.shard_batch``) and so are the logits
-(``full_tensor()`` gathers them).  The train step does not run on one yet
-(ROADMAP Queue 1 item 8a).
+(``full_tensor()`` gathers them).  So does the train step, for the
+``attn_mlp``, ``attn_moe``, ``mla_dense`` and ``mla_moe`` stacks: the
+parameters and the AdamW state are ``DTensor``s laid out by their specs
+(``convert.shard_params``, ``convert.shard_opt_state``), the loss is
+``sharding.cross_entropy`` and each gradient is redistributed to its
+parameter's placements before the update (``optim/adamw``).  The other
+blocks' train step on a process mesh raises ``NotImplementedError``
+(ROADMAP Queue 1 item 8a-v).
 """
 
 from __future__ import annotations
@@ -36,8 +42,12 @@ from repro_torch.core.mesh import ProcessMesh
 
 from .sharding import ShardingRules, param_sharding, rules_ctx
 
+# the blocks whose train step runs on a process mesh
+MESH_TRAIN_BLOCKS = ("attn_mlp", "attn_moe", "mla_dense", "mla_moe")
+
 __all__ = ["TrainConfig", "build_train_step", "build_serve_step",
-           "build_prefill_step", "init_train_state", "opt_state_specs"]
+           "build_prefill_step", "init_train_state", "opt_state_specs",
+           "MESH_TRAIN_BLOCKS"]
 
 _ACC = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -68,12 +78,20 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     place, ``batch`` a dict of tensors on its device.  With ``microbatch``
     mb > 1 the batch is cut into mb chunks along its first axis, the
     gradients summed in ``grad_accum_dtype``, then loss and gradients
-    divided by mb."""
+    divided by mb.  Chunk ``i`` holds the batch's rows ``[i*B/mb,
+    (i+1)*B/mb)``, as the reference's (an MoE's groups depend on it); on
+    a process mesh each chunk is cut from the gathered batch (a few
+    kilobytes of token ids) and split over the batch's axes again; the
+    chunks' gradients are summed in whatever layout DTensor gives the sum,
+    which the update reduces into the parameters' placements."""
     if isinstance(mesh, ProcessMesh):
-        raise NotImplementedError(
-            "the train step on a process mesh is a later slice of ROADMAP "
-            "Queue 1 item 8a")
-    if mesh is not None:
+        other = sorted({st.block for st in cfg.prologue + cfg.pattern}
+                       - set(MESH_TRAIN_BLOCKS))
+        if other:
+            raise NotImplementedError(
+                f"the train step of {', '.join(other)} on a process mesh "
+                "is ROADMAP Queue 1 item 8a-v")
+    elif mesh is not None:
         mesh.device()                # a mesh of distinct devices raises
     if tcfg.remat not in REMATS:
         raise ValueError(tcfg.remat)
@@ -84,6 +102,8 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                           unroll=tcfg.unroll,
                           scan_param_fsdp=tcfg.scan_param_fsdp)
         grads = torch.autograd.grad(loss, tree_leaves(params.tree()))
+        if isinstance(mesh, ProcessMesh):
+            loss = loss.to_local()
         return loss.detach(), list(grads)
 
     def train_step(params: Model, opt_state, batch):
@@ -95,15 +115,13 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         tree = params.tree()
         if tcfg.microbatch > 1:
             mb = tcfg.microbatch
-            chunks = {k: v.reshape((mb, v.shape[0] // mb) + v.shape[1:])
-                      for k, v in batch.items()}
             acc_dt = _ACC[tcfg.grad_accum_dtype]
-            grads = [torch.zeros(p.shape, dtype=acc_dt, device=p.device)
+            grads = [torch.zeros_like(p, dtype=acc_dt)
                      for p in tree_leaves(tree)]
             loss = torch.zeros((), dtype=torch.float32,
                                device=params.device)
             for i in range(mb):
-                l, g = grads_of(params, {k: v[i] for k, v in chunks.items()})
+                l, g = grads_of(params, _chunk(batch, i, mb, mesh))
                 grads = [a + b.to(a.dtype) for a, b in zip(grads, g)]
                 loss = loss + l
             loss = loss / mb
@@ -115,6 +133,20 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         return params, opt_state, {"loss": loss, **om}
 
     return train_step
+
+
+def _chunk(batch: dict, i: int, mb: int, mesh) -> dict:
+    """Rows ``[i*B/mb, (i+1)*B/mb)`` of every input of ``batch``; on a
+    process mesh gathered whole, cut, and split over the batch's axes
+    again (``inputs.shard_batch``)."""
+    if not isinstance(mesh, ProcessMesh):
+        return {k: v.reshape((mb, v.shape[0] // mb) + v.shape[1:])[i]
+                for k, v in batch.items()}
+    from .inputs import shard_batch
+
+    b = next(iter(batch.values())).shape[0] // mb
+    return shard_batch({k: v.full_tensor()[i * b:(i + 1) * b]
+                        for k, v in batch.items()}, mesh)
 
 
 def build_serve_step(cfg: ModelConfig, rules=None, mesh=None,

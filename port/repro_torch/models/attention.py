@@ -22,7 +22,7 @@ import math
 
 import torch
 
-from repro_torch.launch.sharding import index_copy_
+from repro_torch.launch.sharding import by_heads, index_copy_, on_pieces
 
 from .layers import Spec, rms_norm, rope, shard
 
@@ -54,7 +54,7 @@ def _sdpa_dense(q, k, v, mask):
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     g = H // KV
-    q = q.reshape(B, S, KV, g, hd)
+    q = by_heads(q, (B, S, KV, g, hd))
     scores = torch.einsum("bskgh,btkh->bkgst", q, k) / _sqrt_as(hd, q.dtype)
     scores = scores.float() + mask
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
@@ -77,7 +77,7 @@ def _sdpa_chunked(q, k, v, window):
     if T % ck:
         raise ValueError(f"T={T} is not a multiple of the chunk {ck}")
     dev = q.device
-    qr = q.reshape(B, S, KV, g, hd)
+    qr = by_heads(q, (B, S, KV, g, hd))
     scale = _inv_sqrt_f32(hd)
     qpos = torch.arange(S, device=dev)[:, None]
 
@@ -110,7 +110,15 @@ def _sdpa_chunked(q, k, v, window):
 
 def _sdpa(q, k, v, mask, window=None, chunked=None):
     """q (B,S,H,hd), k (B,T,KV,hd), v (B,T,KV,vd); mask (S,T) additive or
-    None for chunked causal.  Chunked path auto-selected for long self-attn."""
+    None for chunked causal.  Chunked path auto-selected for long self-attn.
+    On a process mesh outside inference mode (training), with q split
+    over the batch and heads only, each rank attends its own rows and
+    heads on its pieces (``sharding.on_pieces``; k and v laid out as q)."""
+    split = on_pieces(q, (k, v), (0, 2))
+    if split is not None:
+        (ql, kl, vl), wrap = split
+        return wrap(_sdpa(ql, kl, vl, mask, window, chunked),
+                    tuple(q.shape[:3]) + (v.shape[-1],))
     S, T = q.shape[1], k.shape[1]
     if chunked is None:
         chunked = (S == T and S * T > FLASH_THRESHOLD ** 2)
@@ -156,8 +164,8 @@ def _qkv(x, p, cfg):
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    return (q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd),
-            v.reshape(B, S, KV, hd))
+    return (by_heads(q, (B, S, H, hd)), by_heads(k, (B, S, KV, hd)),
+            by_heads(v, (B, S, KV, hd)))
 
 
 def gqa_attention(x, p, cfg, positions=None, window=None):
@@ -229,17 +237,21 @@ def mla_attention(x, p, cfg, positions=None):
     nope, rpe, vd, r = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim, cfg.kv_lora_rank
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
-    q = (x @ p["wq"]).reshape(B, S, H, nope + rpe)
+    q = by_heads(x @ p["wq"], (B, S, H, nope + rpe))
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = rope(q_rope, positions, cfg.rope_theta)
     kv = x @ p["wkv_a"]                              # (B,S,r+rpe)
     c_kv = rms_norm(kv[..., :r], p["kv_norm"], cfg.norm_eps)
     k_rope = rope(kv[..., None, r:], positions, cfg.rope_theta)  # (B,S,1,rpe)
-    kvb = (c_kv @ p["wkv_b"]).reshape(B, S, H, nope + vd)
+    kvb = by_heads(c_kv @ p["wkv_b"], (B, S, H, nope + vd))
     k_nope, v = kvb[..., :nope], kvb[..., nope:]
     k_rope_b = k_rope.expand(B, S, H, rpe)
-    q_full = torch.cat([q_nope, q_rope], dim=-1)
-    k_full = torch.cat([k_nope, k_rope_b], dim=-1)
+    # laid out by batch and heads, as gqa_attention's q and k (on a
+    # process mesh DTensor may leave the products partial sums)
+    q_full = shard(torch.cat([q_nope, q_rope], dim=-1),
+                   ("batch", "seq", "heads", None))
+    k_full = shard(torch.cat([k_nope, k_rope_b], dim=-1),
+                   ("batch", "seq", "heads", None))
     if S * S > FLASH_THRESHOLD ** 2:
         out = _sdpa(q_full, k_full, v, None, chunked=True)   # H == KV here
     else:

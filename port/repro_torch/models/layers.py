@@ -21,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import sharding
 from repro_torch.launch.sharding import constraint
 
 __all__ = ["Spec", "tree_leaves", "tree_paths", "tree_map", "tree_unflatten",
@@ -170,7 +171,12 @@ def mlp_shapes(cfg, d_ff: int, dtype):
 # ----------------------------------------------------------------------- loss
 
 def cross_entropy(logits, labels, softcap: float = 0.0):
-    """Mean token NLL in f32.  logits (B, S, V); labels (B, S) int."""
+    """Mean token NLL in f32.  logits (B, S, V); labels (B, S) int.  On a
+    process mesh (``logits`` a DTensor), ``sharding.cross_entropy``."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(logits, DTensor):
+        return sharding.cross_entropy(logits, labels, softcap)
     lg = logits.float()
     if softcap:
         lg = torch.tanh(lg / softcap) * softcap

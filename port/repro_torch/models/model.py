@@ -33,7 +33,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.core.engine import resolve_device
-from repro_torch.launch.sharding import embedding, param_constraint
+from repro_torch.launch.sharding import (backward_in_ctx, embedding,
+                                         param_constraint)
 
 from .blocks import BLOCKS
 from .config import ModelConfig
@@ -389,7 +390,9 @@ def loss_fn(params: Model, cfg: ModelConfig, batch: dict,
             remat: str | None = "full", unroll: bool = False,
             scan_param_fsdp: bool = False):
     """Returns (nll + aux, {"nll", "aux"}) for ``batch``'s ``tokens`` (or
-    ``embeds``), ``labels`` and optional ``image_embed``."""
+    ``embeds``), ``labels`` and optional ``image_embed``.  On a process
+    mesh the loss's backward runs under the caller's ``rules_ctx``
+    (``sharding.backward_in_ctx``), on whatever thread autograd runs it."""
     logits, aux = forward(params, cfg,
                           tokens=batch.get("tokens"),
                           embeds=batch.get("embeds"),
@@ -398,7 +401,7 @@ def loss_fn(params: Model, cfg: ModelConfig, batch: dict,
                           remat=remat, unroll=unroll,
                           scan_param_fsdp=scan_param_fsdp)
     nll = cross_entropy(logits, batch["labels"], cfg.logit_softcap)
-    return nll + aux, {"nll": nll, "aux": aux}
+    return backward_in_ctx(nll + aux), {"nll": nll, "aux": aux}
 
 
 # ------------------------------------------------------------------- decode

@@ -199,9 +199,19 @@ def _moe_ffn_mesh(x, p, cfg, act: str, capacity_factor: float,
     - Each rank combines its own experts' (or its "mlp" slice's) rows into
       its tokens: the output is a partial sum over those axes, reduced
       where the residual reads it (one all-reduce of (B, S, D)).
-    - The aux loss is not computed: ``with_aux`` gives a zero in its
-      place.  Only the train step reads it, and that step refuses a
-      process mesh (``launch/steps.build_train_step``).
+    - The aux loss is the reference's over the global group: each rank's
+      per-expert assignment counts and probability sums, summed over the
+      data axes, over the global token count (:func:`_aux_mesh`).
+    - The backward follows the same pieces.  Every rank along "model"
+      routes the same tokens, and each runs only its experts' (or its
+      slice's) share of them: the dispatched tokens and the gates enter
+      that share through ``sharding.grad_summed``, whose backward sums
+      their gradients over those axes, so that each rank holds the whole
+      gradient of its tokens, as the residual's layout says.  A parameter
+      gathered whole over the data axes (the router, and the expert
+      weights when they are gathered) is read on each data rank's own
+      tokens: its piece's gradient is declared a partial sum over those
+      axes, which DTensor reduces into the parameter's layout.
 
     The shared experts and the rest are DTensor ops."""
     from torch.distributed.tensor import Partial, Replicate, Shard
@@ -235,11 +245,9 @@ def _moe_ffn_mesh(x, p, cfg, act: str, capacity_factor: float,
     else:
         raise ValueError(f"{n} tokens a rank in groups of {tg}")
     xg = xl.reshape(G, tl, D)
-    router = sh.whole_over(p["router"], (0, 1)).to_local()
+    router = _read_whole(sh.whole_over(p["router"], (0, 1)), baxes)
     probs, idx, flat_g, keep, dest = route(xg, router, K, C, before)
-    # the aux loss is read only by the train step, which does not run on a
-    # process mesh yet; the serving steps discard it
-    aux = torch.zeros((), dtype=torch.float32, device=xl.device) \
+    aux = _aux_mesh(probs, idx, E, K, cfg.router_aux_coef, baxes, T) \
         if with_aux else None
 
     w1, w3, w2 = p["w1"], p["w3"], p["w2"]
@@ -255,7 +263,10 @@ def _moe_ffn_mesh(x, p, cfg, act: str, capacity_factor: float,
     e0, El = sh.piece_span(w1, 0)
     Fl = sh.piece_span(w1, 2)[1]
     rows_g = E * C + 1
-    buf = _dispatch(xg, dest, rows_g).view(G, rows_g, D)
+    share = tuple(sorted(eaxes + faxes))      # axes of the experts' shares
+    flat_g = sh.grad_summed(flat_g, share)
+    buf = _dispatch(sh.grad_summed(xg, share), dest,
+                    rows_g).view(G, rows_g, D)
     eb = buf[:, e0 * C:(e0 + El) * C].reshape(G, El, C, D)
     # move the tokens' rows or the weights' FSDP pieces, whichever is
     # fewer bytes (result bytes of the collectives each takes)
@@ -266,10 +277,9 @@ def _moe_ffn_mesh(x, p, cfg, act: str, capacity_factor: float,
     if daxes == baxes and len(baxes) == 1 and token_bytes < weight_bytes:
         out = _experts_by_tokens(eb, w1, w3, w2, act, baxes[0], span)
     else:
-        w1, w3, w2 = (sh.whole_over(w, (d,)) for w, d in
-                      ((w1, 1), (w3, 1), (w2, 2)))
-        out = _experts(eb, w1.to_local(), w3.to_local(), w2.to_local(),
-                       act, hint=lambda t, axes: t)
+        w1, w3, w2 = (_read_whole(sh.whole_over(w, (d,)), baxes)
+                      for w, d in ((w1, 1), (w3, 1), (w2, 2)))
+        out = _experts(eb, w1, w3, w2, act, hint=lambda t, axes: t)
     out_flat = torch.zeros((G, rows_g, D), dtype=out.dtype,
                            device=out.device)
     out_flat[:, e0 * C:(e0 + El) * C] = out.reshape(G, El * C, D)
@@ -281,6 +291,39 @@ def _moe_ffn_mesh(x, p, cfg, act: str, capacity_factor: float,
     if cfg.n_shared_experts:
         y = y + glu_mlp(x, p["shared"], act)
     return y, aux
+
+
+def _read_whole(w, baxes: tuple) -> torch.Tensor:
+    """This rank's piece of the DTensor ``w`` (whole over the data axes
+    ``baxes``), read on this rank's own tokens: its gradient is a partial
+    sum over those axes."""
+    from torch.distributed.tensor import Partial
+
+    return w.to_local(grad_placements=tuple(
+        Partial() if i in baxes else p for i, p in enumerate(w.placements)))
+
+
+def _aux_mesh(probs, idx, E: int, K: int, coef: float, baxes: tuple,
+              T: int):
+    """:func:`_aux` over the global group from a rank's ``probs`` and
+    ``idx`` of its own tokens: its per-expert assignment counts and
+    probability sums, summed over the data axes ``baxes`` (one
+    all-reduce), over the global token count ``T``.  Every rank along the
+    other axes holds the same tokens and the same value: a replicated
+    scalar DTensor, so that its gradient comes back as one."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.launch import sharding as sh
+
+    counts = F.one_hot(idx, E).float().sum(dim=(0, 1, 2))       # (E,)
+    both = torch.stack([counts, probs.sum(dim=(0, 1))])
+    if baxes:
+        both = sh.sum_ranks(both, baxes)
+    frac_tokens = both[0] / T / K
+    frac_probs = both[1] / T
+    aux = E * torch.sum(frac_tokens * frac_probs) * coef
+    return sh.from_pieces(aux, (Replicate(),) * len(sh.process_mesh().shape),
+                          ())
 
 
 def _experts_by_tokens(eb, w1, w3, w2, act: str, axis: int, span: int):
@@ -303,8 +346,12 @@ def _experts_by_tokens(eb, w1, w3, w2, act: str, axis: int, span: int):
     got = sh.all_to_all(send.reshape(n * G, El, C, D // n), axis)
     if span > 1:                         # G == 1: one group a span
         got = got.reshape(n // span, span, El, C, D // n).sum(dim=1)
-    h1 = sh.sum_ranks(torch.einsum("gecd,edf->gecf", got, w1), (axis,))
-    h3 = sh.sum_ranks(torch.einsum("gecd,edf->gecf", got, w3), (axis,))
+    # each position reads the sums through its own slice of w2: their
+    # backward sums the positions' gradients
+    h1 = sh.sum_ranks(torch.einsum("gecd,edf->gecf", got, w1), (axis,),
+                      partial_grad=True)
+    h3 = sh.sum_ranks(torch.einsum("gecd,edf->gecf", got, w3), (axis,),
+                      partial_grad=True)
     a = F.silu(h1) if act == "silu" else F.gelu(h1, approximate="tanh")
     out = torch.einsum("gecf,efd->gecd", a * h3, w2)  # (groups, El, C, D/n)
     if span > 1:

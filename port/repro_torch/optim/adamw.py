@@ -11,9 +11,19 @@ reference's trees, so the global norm sums them in the reference's order.
 :func:`adamw_update` works in place under ``torch.no_grad()``: it writes
 the new values into the parameters, ``m``, ``v`` and ``master``
 themselves, so the views a serving model holds of its parameters stay
-valid, and the optimizer allocates nothing the size of the model.  On one
-card with no mesh there is no sharding of the states (the reference's
-ZeRO posture comes with ``launch/sharding``).
+valid, and the optimizer allocates nothing the size of the model.
+
+On a process mesh (the parameters ``DTensor``s, ``convert.shard_params``)
+``m``, ``v`` and ``master`` are laid out as their parameters (the
+reference's ZeRO posture: ``steps.opt_state_specs`` gives each its
+parameter's spec) and ``step`` is a plain scalar, the same on every rank.
+A gradient comes back from autograd in whatever layout DTensor's backward
+left it, often a partial sum over the batch's axes: the update first
+redistributes it to its parameter's placements (the gradient's reduction),
+then works on each rank's pieces.  :func:`global_norm` sums each rank's
+pieces of every leaf, each piece counted once: an all-reduce a mesh
+axis (DTensor reduces a sum partial over two axes in two, one after the
+other).
 """
 
 from __future__ import annotations
@@ -47,8 +57,8 @@ def _tree(params) -> dict:
 def adamw_init(params, cfg: AdamWConfig) -> dict:
     tree = _tree(params)
     dev = tree_leaves(tree)[0].device
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
-                                  device=p.device)
+    # laid out as its parameter (a DTensor's zeros are one)
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
     state = {"step": torch.zeros((), dtype=torch.int32, device=dev),
              "m": tree_map(zeros, tree), "v": tree_map(zeros, tree)}
     if cfg.master_f32:
@@ -72,11 +82,53 @@ def adamw_state_shapes(param_specs, cfg: AdamWConfig) -> dict:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's sum of squares in f32, the leaves
-    added in sorted key order."""
+    added in sorted key order.  With ``DTensor`` leaves (none a partial
+    sum), each rank takes the sum of squares of its piece of each leaf,
+    or zero where a rank before it along an axis that does not split the
+    leaf holds the same piece; an all-reduce a mesh axis sums them into
+    each leaf's, and the leaves are added in sorted key order."""
+    from torch.distributed.tensor import DTensor
+
+    leaves = tree_leaves(_tree(tree))
+    if not any(isinstance(g, DTensor) for g in leaves):
+        total = 0
+        for g in leaves:
+            total = total + torch.sum(torch.square(g.to(torch.float32)))
+        return torch.sqrt(total)
+    from repro_torch.launch import sharding as sh
+
+    mesh = next(g for g in leaves if isinstance(g, DTensor)).device_mesh
+    coord = mesh.get_coordinate()
+    sums = []
+    for g in leaves:
+        if any(p.is_partial() for p in g.placements):
+            raise ValueError(f"the norm of a partial sum ({g.placements})")
+        first = all(p.is_shard() or c == 0
+                    for p, c in zip(g.placements, coord))
+        ss = torch.sum(torch.square(g.to_local().to(torch.float32)))
+        sums.append(ss if first else torch.zeros_like(ss))
+    every = sh.reduce_ranks(torch.stack(sums),
+                            tuple(range(len(coord))))
     total = 0
-    for g in tree_leaves(_tree(tree)):
-        total = total + torch.sum(torch.square(g.to(torch.float32)))
+    for ss in every:
+        total = total + ss
     return torch.sqrt(total)
+
+
+def _laid_out(g, p):
+    """The gradient ``g`` in its parameter ``p``'s placements (a plain
+    tensor as it is)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+        g = g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _local(t):
+    """A ``DTensor``'s piece on this rank (a view), a plain tensor as it
+    is."""
+    return t.to_local() if hasattr(t, "to_local") else t
 
 
 @torch.no_grad()
@@ -88,6 +140,7 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig,
     operations in its order: the gradient cast to f32 and clipped, the
     moments, their bias corrections, then the decoupled decay."""
     tree = _tree(params)
+    grads = tree_map(_laid_out, grads, tree)
     step = state["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
@@ -98,6 +151,8 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig,
     masters = state.get("master", tree)
 
     def upd(p, pm, g, m, v):
+        same = pm is p
+        p, pm, g, m, v = (_local(t) for t in (p, pm, g, m, v))
         g = g.to(torch.float32) * scale
         m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
         v.copy_(cfg.b2 * v + (1 - cfg.b2) * torch.square(g))
@@ -106,7 +161,7 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig,
         w = pm.to(torch.float32)
         w = w - lr * (mh / (torch.sqrt(vh) + cfg.eps)
                       + cfg.weight_decay * w)
-        if pm is not p:
+        if not same:
             pm.copy_(w)
         p.copy_(w.to(p.dtype))
 

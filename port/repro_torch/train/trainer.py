@@ -16,6 +16,14 @@ The fresh parameters come from ``init_params`` on a generator seeded 0 on
 the training device: the reference's ``jax.random.key(0)`` draw has no
 torch counterpart, so the two packages start from different weights
 unless one is converted (``convert.params_from_numpy``).
+
+With a process mesh (``core.mesh.ProcessMesh``; every rank of the mesh
+runs the same trainer) the parameters are laid out by their specs as they
+are drawn (``convert.shard_params`` over ``init_leaves``: no rank holds
+the whole tree), each step's batch is split over the batch's axes
+(``inputs.shard_batch``), the train step runs sharded, and the
+checkpoints are gathered and written by rank 0 and restored into each
+rank's pieces (``checkpoint/ckpt.py``).
 """
 
 from __future__ import annotations
@@ -28,9 +36,11 @@ import torch
 
 from repro_torch.checkpoint.ckpt import AsyncSaver, latest_step, restore
 from repro_torch.core.engine import resolve_device, upload
+from repro_torch.core.mesh import ProcessMesh
 from repro_torch.data.pipeline import HostDataLoader, TokenDataset
-from repro_torch.launch.steps import TrainConfig, build_train_step
-from repro_torch.models import init_params
+from repro_torch.launch.steps import (TrainConfig, build_train_step,
+                                      opt_state_specs)
+from repro_torch.models import init_leaves, init_params, param_shapes
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import tree_leaves
 from repro_torch.optim import adamw_init
@@ -55,7 +65,10 @@ class Trainer:
         self.cfg = cfg
         self.tcfg = tcfg
         self.ds = dataset
-        self.device = resolve_device(device)
+        self.rules, self.mesh = rules, mesh
+        self.sharded = isinstance(mesh, ProcessMesh)
+        self.device = mesh.device() if self.sharded \
+            else resolve_device(device)
         self.saver = AsyncSaver()
         self.step_fn = build_train_step(cfg, tcfg.train, rules, mesh)
         self.metrics: list[dict] = []
@@ -67,13 +80,31 @@ class Trainer:
         """Fresh init, or resume from the latest committed checkpoint.
         Returns (params, opt_state, first step)."""
         gen = torch.Generator(device=self.device).manual_seed(0)
-        params = init_params(self.cfg, gen, device=str(self.device))
+        if self.sharded:
+            from repro_torch.convert import shard_params
+            params = shard_params(init_leaves(self.cfg, gen,
+                                              str(self.device)),
+                                  self.mesh, self.rules, self.cfg)
+        else:
+            params = init_params(self.cfg, gen, device=str(self.device))
         opt = adamw_init(params, self.tcfg.train.optim)
         start = 0
+        if self.sharded:
+            # every rank reads the directory after rank 0's last write
+            import torch.distributed as dist
+            dist.barrier()
         last = latest_step(self.tcfg.ckpt_dir)
         if last is not None:
+            shardings = None
+            if self.sharded:
+                from repro_torch.launch.sharding import param_sharding
+                shardings = {"p": param_sharding(self.mesh, self.rules,
+                                                 param_shapes(self.cfg)),
+                             "o": opt_state_specs(self.cfg, self.mesh,
+                                                  self.rules,
+                                                  self.tcfg.train)}
             state, _ = restore(self._state(params, opt), self.tcfg.ckpt_dir,
-                               last)
+                               last, shardings)
             with torch.no_grad():
                 for p, t in zip(tree_leaves(params.tree()),
                                 tree_leaves(state["p"])):
@@ -93,6 +124,9 @@ class Trainer:
                 _, (tokens, labels) = next(loader)
                 batch = {"tokens": upload(tokens, self.device),
                          "labels": upload(labels, self.device)}
+                if self.sharded:
+                    from repro_torch.launch.inputs import shard_batch
+                    batch = shard_batch(batch, self.mesh)
                 params, opt, m = self.step_fn(params, opt, batch)
                 if step % self.tcfg.log_every == 0 or \
                         step == self.tcfg.steps - 1:

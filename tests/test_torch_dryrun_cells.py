@@ -3,8 +3,10 @@ arch's smoke config and every step kind on ``meta``, at small shapes
 (``test_torch_dryrun.SMALL_SHAPES``).  Every block runs on a process mesh,
 so every decode and prefill cell is planned on DTensor placements
 (``dryrun.sharded_plan``, in a fake process group this process opens and
-closes), and a train cell counts its parameters' and gradients'
-collectives."""
+closes), and so is a train cell of the blocks whose train step runs on a
+process mesh (``dryrun.mesh_trains``: on the two-axis production mesh
+these cells use); the other train cells count their parameters' and
+gradients' collectives."""
 
 import json
 import os
@@ -16,6 +18,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import pytest  # noqa: E402
 
+from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.configs.base import ARCHS  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.plan import COLLECTIVES  # noqa: E402
@@ -37,7 +40,8 @@ def test_run_cell_plans_every_smoke_config_on_meta(monkeypatch, arch, shape):
     # a train cell reduces every gradient over the batch; a serving cell,
     # run on DTensors, the activations' partial sums
     assert c["reduce-scatter"] + c["all-reduce"] > 0
-    sharded = shape != "train_4k"
+    sharded = shape != "train_4k" or dryrun.mesh_trains(
+        get_smoke_config(arch), dryrun.make_production_mesh(devices="meta"))
     assert (r["temp_scope"], r["cost_split"], r["collectives_scope"]) == ((
         "one position's shard (DTensor placements)", "even",
         "all (DTensor placements)") if sharded else (

@@ -83,7 +83,7 @@ def plans() -> dict:
     out["cells"] = {}
     for arch, shape, units in (("qwen2-0.5b", "decode_32k", 1),
                                ("qwen2-0.5b", "prefill_32k", 1),
-                               ("qwen2-0.5b", "train_4k", 1),
+                               ("hymba-1.5b", "train_4k", 1),
                                ("deepseek-v2-lite-16b", "decode_32k", 1),
                                ("mixtral-8x22b", "decode_32k", 1),
                                ("hymba-1.5b", "decode_32k", 1),
@@ -233,8 +233,10 @@ def test_recurrent_and_cross_attention_cells_report_every_collective(
     assert sum(c["argument_parts"].values()) == mem["argument_bytes"]
 
 
-@pytest.mark.parametrize("cell", ["qwen2-0.5b|train_4k"])
+@pytest.mark.parametrize("cell", ["hymba-1.5b|train_4k"])
 def test_other_cells_keep_the_parameter_count(planned, cell):
+    """A train cell of a block whose train step does not run on a process
+    mesh yet (qwen2's does: ``test_torch_sharded_trainer.py``)."""
     c = planned["cells"][cell]
     assert c["collectives_scope"] == "parameters and gradients"
     assert c["temp_scope"] == "model axis unsplit (upper bound)"
