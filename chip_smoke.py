@@ -227,13 +227,14 @@
         mesh: the parameters and the AdamW state DTensors, the batch
         split over "data"), on M's mesh and launcher, remat "full", 3
         AdamW steps of 8 x 128 tokens from the seed, each run first
-        unsharded on cuda:0 from the same draw (its state saved, the
-        model freed before the ranks spawn): P1 qwen2-0.5b at full width
-        in bf16 with the f32 master, 4 of its 24 layers (``P_RUNS``), which
+        unsharded on cuda:0 from the same draw by rank 0 while the other
+        ranks wait (its state saved to disk, the model freed before the
+        ranks' run; one run's state on disk at a time): P1 qwen2-0.5b at full width
+        in bf16 with the f32 master, 2 of its 24 layers (``P_RUNS``), which
         checkpoints after step 2 on the mesh (rank 0 writes the gathered
         leaves) and whose step 3, redone by fresh ranks from that
         checkpoint, must equal the uninterrupted one bit for bit (every
-        rank's every piece); P2 qwen2 in f32, 2 layers, microbatch 2; P3
+        rank's every piece); P2 qwen2 in f32, 1 layer, microbatch 2; P3
         deepseek-v2-lite-16b in f32, its dense layer and one MoE unit,
         whose aux loss must be nonzero and match the unsharded one's
         within P_AUX_TOL.  Each line has the loss and grad-norm gaps
@@ -246,9 +247,20 @@
         bytes a rank, each rank's parameter and optimizer bytes against
         the plan's (equal), and for P3 which side of the MoE byte rule
         each call took and, step by step, the tokens whose experts differ
-        between the two runs.  Counts are zeroed just before P and read just
-        after it (``launches_p``): the train path runs none of the five
-        kernels, and a launch there fails the run.
+        between the two runs.
+     Q  the sharded train step of the recurrent and cross-attention
+        blocks, P's runs in P's spawn: Q1 hymba-1.5b at full width in
+        bf16 with the f32 master, 2 of its 32 layers, its window as
+        published; Q2 xlstm-1.3b in f32, one of its 6 units (7 ``mlstm``,
+        1 ``slstm``), whose sLSTM time loop must issue no collective in
+        step 1 (``SlstmLoopMeter``: its forward, its recomputation and
+        its backward); Q3 llama-3.2-vision-11b in f32, one of its 8
+        units (4 ``attn_mlp``, 1 ``cross_attn_mlp``), its gates at 0.5
+        and 1600 image embeddings a row drawn from the seed (bf16, split
+        over "data").  Each line as P's, within P_TOL.
+        Counts are zeroed just before P and read just after Q
+        (``launches_p``, ``launches_q``): the train path runs none of the
+        five kernels, and a launch there fails the run.
    After the timed batches of C, D, E and G, 4 of the phase's batches
    replay through its dispatch half (``BourbonStore.dispatch_get`` in C,
    ``ShardedStore.dispatch_get`` in D and G, and in E shard 0's
@@ -3460,6 +3472,75 @@ def _comm_kinds(counts: dict) -> dict:
     return {str(k).split(".")[-1]: int(v) for k, v in counts.items()}
 
 
+class SlstmLoopMeter:
+    """While open, and while ``meter`` (a ``plan.ShardMeter``, or None) is
+    open over the steps: the collectives, by kind, that ``meter`` saw
+    inside the sLSTM's time loop (``ssm._slstm_loop``), its forward and
+    its backward (from the hidden states' gradient to the input's, marked
+    by hooks on both, on whatever thread autograd runs them); ``tokens``,
+    the steps of the loops measured, ``loops``, how many, and
+    ``backwards``, how many of their backwards ran (a forward recomputed
+    under remat "full" is only a forward: autograd runs the backward of
+    the first one's graph)."""
+
+    def __init__(self, meter=None) -> None:
+        self.meter = meter
+        self.windows: list = []        # [meter, start, end] a pass
+        self.backs: list = []          # the windows of the backwards
+        self.tokens = self.loops = 0
+
+    def __enter__(self):
+        from repro_torch.models import ssm
+
+        self.ssm, self.real = ssm, ssm._slstm_loop
+        ssm._slstm_loop = self._loop
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.ssm._slstm_loop = self.real
+
+    @property
+    def counts(self) -> dict:
+        out: dict = {}
+        for meter, start, end in self.windows:
+            if start is None and end is None:
+                continue                   # a graph no backward ran
+            if start is None or end is None:
+                raise RuntimeError("an sLSTM loop's backward never ended")
+            for kind in meter.log[start:end]:
+                out[kind] = out.get(kind, 0) + 1
+        return out
+
+    @property
+    def backwards(self) -> int:
+        return sum(w[1] is not None for w in self.backs)
+
+    def _loop(self, wx, R, bias):
+        meter = self.meter
+        if meter is None:
+            return self.real(wx, R, bias)
+        start = len(meter.log)
+        hs = self.real(wx, R, bias)
+        self.windows.append([meter, start, len(meter.log)])
+        self.tokens += wx.shape[1]
+        self.loops += 1
+        if hs.requires_grad and wx.requires_grad:
+            back = [meter, None, None]
+            self.windows.append(back)
+            self.backs.append(back)
+
+            def start_(g):
+                back[1] = len(meter.log)
+                return g
+
+            def end_(g):
+                back[2] = len(meter.log)
+                return g
+            hs.register_hook(start_)
+            wx.register_hook(end_)
+        return hs
+
+
 class RouteWatch:
     """While open: each ``moe.route`` call's probabilities, experts and
     keep mask, held as the device tensors it returned (no device op, no
@@ -3799,17 +3880,28 @@ def drive_sharded_serve(seed: int, card: str, tags=MN_RUNS) -> dict:
 
 # phase P: the sharded train step on M's mesh and launcher
 P_ARCH = {"P1": "qwen2-0.5b", "P2": "qwen2-0.5b",
-          "P3": "deepseek-v2-lite-16b"}
+          "P3": "deepseek-v2-lite-16b", "Q1": "hymba-1.5b",
+          "Q2": "xlstm-1.3b", "Q3": "llama-3.2-vision-11b"}
 # (dtype, pattern units, microbatch): P1 qwen2 at full width in bf16 with
-# the f32 master, 4 of its 24 layers; P2 2 layers in f32 at microbatch 2;
+# the f32 master, 2 of its 24 layers; P2 1 layer in f32 at microbatch 2;
 # P3 deepseek's dense layer and one MoE unit in f32 (N3's cut).  Every
-# run remat "full", P_STEPS AdamW steps of P_B x P_S tokens.  P1's cut:
+# run remat "full", P_STEPS AdamW steps of P_B x P_S tokens.  P1's cuts:
 # at full depth its steps took 17.0, 25.3 and 45.3 s (the last waiting on
 # rank 0's 7 GB checkpoint, 36.9 s), its run 160 s and the fresh ranks'
 # resume 54 s (on an NVIDIA H100 80GB HBM3, 700.00 W), which
-# put phase P near 365 s and the smoke past 1,000 s
-P_RUNS = {"P1": ("bfloat16", 4, 1), "P2": ("float32", 2, 2),
-          "P3": ("float32", 1, 1)}
+# put phase P near 365 s and the smoke past 1,000 s: cut to 4 layers;
+# then phase Q's ~270 s (the same card) cut P1 to 2 layers and P2 from 2
+# to 1, with ``--keys`` (A_KEYS), to keep the smoke near 1,100 s
+P_RUNS = {"P1": ("bfloat16", 2, 1), "P2": ("float32", 1, 2),
+          "P3": ("float32", 1, 1),
+          # phase Q, the recurrent and cross-attention blocks in the same
+          # spawn: Q1 2 of hymba's 32 layers in bf16 with the f32 master,
+          # its window as published; Q2 one of xlstm's 6 units (7 mLSTM
+          # and 1 sLSTM) in f32; Q3 one of llama-3.2-vision's 8 units (4
+          # attn_mlp and 1 cross_attn_mlp) in f32, its gates at I_GATE
+          # and P_IMAGE's 1600 image tokens a row
+          "Q1": ("bfloat16", 2, 1), "Q2": ("float32", 1, 1),
+          "Q3": ("float32", 1, 1)}
 P_B, P_S, P_STEPS = 8, 128, 3
 P_CKPT_AFTER = 2          # P1 checkpoints after step 2; fresh ranks redo 3
 P_LEAF_KINDS = ("params", "master", "m", "v")
@@ -3845,7 +3937,31 @@ P_TOL = {"P1": {"metrics": 2.0 ** -7, "step1": 2.0 ** -2,
          "P2": {"metrics": 2.0 ** -12, "step1": 2.0 ** -9,
                 "leaves": 2.0 ** -5},
          "P3": {"metrics": 2.0 ** -15, "step1": 2.0 ** -10,
-                "leaves": 2.0 ** -2}}
+                "leaves": 2.0 ** -2},
+         "Q1": {"metrics": 2.0 ** -9, "step1": 2.0 ** -3,
+                "leaves": 2.0 ** -2},
+         "Q2": {"metrics": 2.0 ** 0, "step1": 2.0 ** -2,
+                "leaves": 2.0 ** 1},
+         "Q3": {"metrics": 2.0 ** -18, "step1": 2.0 ** -7,
+                "leaves": 2.0 ** -4}}
+# Q's by the same method (shard_tol_control.py --tag Q1|Q2|Q3, the same
+# card; faults also conv_w's gradient from a rank's own rows (Q1), the
+# sLSTM carry one step stale (Q2), the gates' gradients left partial over
+# "data" (Q3)).  Q1 (bf16, 2 layers): metrics sound <= 1.59e-4, faults >=
+# 0.0140 (conv_w); step1 <= 0.0302 against >= 0.921; leaves <= 0.0821
+# against >= 0.800.  Q3 (f32): metrics <= 3.33e-7 against >= 2.86e-5
+# (the gates); step1 <= 5.6e-5 against >= 0.978; leaves <= 5.19e-3
+# against >= 0.742.  Q2 (xlstm f32): step1 <= 0.112 against >= 1.01, the
+# one line that parts them.  xlstm's runs part on their own: the run
+# unsharded against itself with every parameter one ulp up on half its
+# entries (shard_tol_control.py --tag Q2 --ulp, the same card) reads step1
+# 0.040, 0.564, 0.011, metrics 0.147-0.312 and leaves 1.31-2.68 on seeds
+# 0-2, as far as the sharding moves it; so step1 holds seed 0 (0.0170) and
+# could cross on another seed.  The grad norm of steps 2-3 differs by up to
+# 80% on a sound seed (0.801) against 24-46% under the faults, the leaves
+# <= 1.88 sound against 1.44-4.95: no bound parts them, and metrics and
+# leaves are lines at the power of two above the sound readings (a
+# divergence or a NaN)
 P_AUX_TOL = 2.0 ** -16    # P3's aux loss, relative
 P_ONE_DEVICE = "cuda:0"   # the unsharded runs' (a CPU rehearsal: "cpu")
 
@@ -3865,10 +3981,28 @@ def p_train(tag: str):
 
 def p_batches(cfg, seed: int) -> list:
     """P_STEPS batches of P_B x P_S token ids and labels from ``seed``
-    (the same on both sides)."""
+    (the same on both sides), and for a config with image tokens the
+    image embeddings (P_B, I, D), N(0, 1) in float32 (``p_tensors`` casts
+    them to bfloat16, the dry run's input spec)."""
     rng = np.random.default_rng(seed + 80)
-    return [{k: rng.integers(0, cfg.vocab, (P_B, P_S)).astype(np.int32)
-             for k in ("tokens", "labels")} for _ in range(P_STEPS)]
+    out = []
+    for _ in range(P_STEPS):
+        b = {k: rng.integers(0, cfg.vocab, (P_B, P_S)).astype(np.int32)
+             for k in ("tokens", "labels")}
+        if cfg.n_image_tokens:
+            b["image_embed"] = rng.standard_normal(
+                (P_B, cfg.n_image_tokens, cfg.d_model), dtype=np.float32)
+        out.append(b)
+    return out
+
+
+def p_tensors(batch: dict, device) -> dict:
+    """One of ``p_batches`` on ``device``, the image embeddings in
+    bfloat16."""
+    import torch
+    return {k: torch.from_numpy(v).to(device, torch.bfloat16
+                                      if k == "image_embed" else None)
+            for k, v in batch.items()}
 
 
 def _p_aux(model, cfg, batch, rules=None, mesh=None) -> float:
@@ -3883,26 +4017,29 @@ def _p_aux(model, cfg, batch, rules=None, mesh=None) -> float:
 
 
 def p_unsharded(tag: str, seed: int, out_dir: str) -> dict:
-    """Run ``tag`` on one process on P_ONE_DEVICE from the same draw: P_STEPS
-    train steps, each timed, every MoE routing watched (``route_calls``:
-    the calls made by the end of each step); AdamW's m and v after the
-    first step and the state after the last saved to ``out_dir``
-    (``ckpt.save``'s layout, for the ranks to read); the aux loss of the
-    first batch before any step."""
+    """Run ``tag`` on one process on P_ONE_DEVICE from the same draw as
+    the ranks' (``m_leaves``): P_STEPS train steps, each timed, every MoE
+    routing watched (``route_calls``: the calls made by the end of each
+    step); AdamW's m and v after the first step and the state after the
+    last saved to ``out_dir`` (``ckpt.save``'s layout, for the ranks to
+    read; a float32 run's master, equal to its parameters bit for bit, is
+    not written twice); the aux loss of the first batch before any
+    step."""
     import torch
     from repro_torch.checkpoint import ckpt
     from repro_torch.launch.steps import build_train_step
-    from repro_torch.models import init_params
+    from repro_torch.models import Model, param_shapes
+    from repro_torch.models.layers import tree_unflatten
     from repro_torch.optim import adamw_init
 
     cfg, tc = p_config(tag), p_train(tag)
     dev = torch.device(P_ONE_DEVICE)
     torch.cuda.reset_peak_memory_stats()
-    model = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
-                        str(dev)).trainable()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = Model(cfg, tree_unflatten(param_shapes(cfg), [
+        t for _, t in m_leaves(cfg, gen, str(dev))])).trainable()
     opt = adamw_init(model, tc.optim)
-    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
-               for b in p_batches(cfg, seed)]
+    batches = [p_tensors(b, dev) for b in p_batches(cfg, seed)]
     rec = {"aux": _p_aux(model, cfg, batches[0]) if cfg.n_experts else None}
     step = build_train_step(cfg, tc)
     rec["loss"], rec["grad_norm"], rec["step_ms"] = [], [], []
@@ -3919,6 +4056,8 @@ def p_unsharded(tag: str, seed: int, out_dir: str) -> dict:
                           out_dir, 1)
     rec["routes"] = routes.host()
     rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    if cfg.dtype == "float32":
+        opt = {k: v for k, v in opt.items() if k != "master"}
     ckpt.save({"p": model.tree(), "o": opt}, out_dir, P_STEPS)
     del model, opt, batches
     gc.collect()
@@ -3971,7 +4110,9 @@ def _p_gaps(tree, ref_dir: str, mesh, step: int = P_STEPS,
     for kind in kinds:
         prefix = "p." if kind == "params" else f"o.{kind}."
         for name, t in tree_paths(trees[kind]):
-            want = piece(leaves[prefix + name], t)
+            # a float32 run's master is its parameters (not written twice)
+            meta = leaves.get(prefix + name) or leaves["p." + name]
+            want = piece(meta, t)
             got = t.to_local().float()
             rows.append(torch.stack([(got - want).abs().max(),
                                      want.abs().max()]))
@@ -3994,18 +4135,26 @@ def _spec_of(t, mesh):
     return P(*(tuple(p) for p in parts))
 
 
-def p_rank(rank: int, device, tags: tuple, seed: int, refs: dict,
-           ckpt_dir: str | None) -> dict:
-    """One rank of phase P, each run of ``tags`` in turn: ``p_config``'s
-    model laid out over the process mesh under DEFAULT_RULES, drawn leaf
-    by leaf with ``init_leaves`` on a generator seeded ``seed`` (the
-    unsharded run's draws), its AdamW state laid out as the parameters;
-    P_STEPS train steps, each timed, every MoE routing watched, the first
-    under ``plan.ShardMeter`` (the collectives of a step by kind, and their
-    bytes), m and v after it held against the unsharded run's; P1
+def p_rank(rank: int, device, tags: tuple, seed: int, ref_root: str,
+           ckpt_dir: str | None, patch=None, keep: bool = False) -> dict:
+    """One rank of phases P and Q, each run of ``tags`` in turn: rank 0
+    first runs it unsharded (``p_unsharded``, its state written under
+    ``ref_root``, unless an earlier spawn wrote it there), the other ranks
+    waiting, so that one run's reference is on disk at a time and no model
+    but the ranks' is on the card while they run; then ``patch()`` (a
+    control's fault, once; None: none), and ``p_config``'s model laid out
+    over the process mesh under DEFAULT_RULES, drawn leaf by leaf with
+    ``m_leaves`` on a generator seeded ``seed`` (the unsharded run's
+    draws), its AdamW state laid out as the parameters; P_STEPS train
+    steps, each timed, every MoE routing watched, the first under
+    ``plan.ShardMeter`` (the collectives of a step by kind, and their
+    bytes, and ``SlstmLoopMeter``'s count of those inside the sLSTM's time
+    loop), m and v after it held against the unsharded run's; P1
     checkpoints after step P_CKPT_AFTER into ``ckpt_dir`` (None: it does
-    not).  Then the gaps to the unsharded run's state in ``refs[tag]``
-    and, for P1, each leaf's digest.  Returns a record a run."""
+    not).  Then the gaps to the unsharded run's state, for P1 each leaf's
+    digest, and the reference removed (unless ``keep``).  Returns a record
+    a run, rank 0's with the unsharded run's as ``one``."""
+    import pickle
     import torch
     import torch.distributed as dist
     from repro_torch.checkpoint import ckpt
@@ -4023,6 +4172,18 @@ def p_rank(rank: int, device, tags: tuple, seed: int, refs: dict,
     rules = ShardingRules(DEFAULT_RULES)
     out = {}
     for tag in tags:
+        ref = os.path.join(ref_root, tag)
+        saved = os.path.join(ref, "unsharded.pkl")
+        if rank == 0 and not os.path.exists(saved):
+            t0 = time.perf_counter()
+            one = p_unsharded(tag, seed, ref)
+            one["s"] = time.perf_counter() - t0
+            with open(saved, "wb") as f:
+                pickle.dump(one, f)
+        dist.barrier()
+        if patch is not None:
+            patch()
+            patch = None
         t_run = time.perf_counter()
         cfg, tc = p_config(tag), p_train(tag)
         torch.cuda.reset_peak_memory_stats(device)
@@ -4031,17 +4192,17 @@ def p_rank(rank: int, device, tags: tuple, seed: int, refs: dict,
         model = shard_params(m_leaves(cfg, gen, device), mesh, rules,
                              cfg).trainable()
         opt = adamw_init(model, tc.optim)
-        batches = [shard_batch({k: torch.from_numpy(v).to(device)
-                                for k, v in b.items()}, mesh)
+        batches = [shard_batch(p_tensors(b, device), mesh)
                    for b in p_batches(cfg, seed)]
         rec = {"aux": _p_aux(model, cfg, batches[0], rules, mesh)
                if cfg.n_experts else None}
         step = build_train_step(cfg, tc, rules, mesh)
         rec["loss"], rec["grad_norm"], rec["step_ms"] = [], [], []
         rec["route_calls"] = []
-        with RouteWatch() as routes:
+        with RouteWatch() as routes, SlstmLoopMeter() as loop:
             for i, b in enumerate(batches):
                 meter = ShardMeter() if i == 0 else contextlib.nullcontext()
+                loop.meter = meter if i == 0 else None
 
                 def one_step():
                     with meter:
@@ -4056,8 +4217,8 @@ def p_rank(rank: int, device, tags: tuple, seed: int, refs: dict,
                     rec["collective_bytes_step"] = meter.collectives
                     # m and v after one step are the gradient's, taken
                     # where both runs route alike
-                    rec["gaps_step1"] = _p_gaps({"o": opt}, refs[tag],
-                                                mesh, 1, P_STEP1_KINDS)
+                    rec["gaps_step1"] = _p_gaps({"o": opt}, ref, mesh, 1,
+                                                P_STEP1_KINDS)
                 if tag == "P1" and ckpt_dir and i + 1 == P_CKPT_AFTER:
                     t0 = time.perf_counter()
                     ckpt.save({"p": model.tree(), "o": opt}, ckpt_dir,
@@ -4065,9 +4226,12 @@ def p_rank(rank: int, device, tags: tuple, seed: int, refs: dict,
                     rec["ckpt_s"] = time.perf_counter() - t0
         rec["routes"] = routes.host()
         rec["by_tokens"] = len(routes.by_tokens)
+        rec["slstm_loop"] = {"collectives": loop.counts,
+                             "tokens": loop.tokens, "loops": loop.loops,
+                             "backwards": loop.backwards}
         rec["coordinate"] = list(mesh.coordinate)
         state = {"p": model.tree(), "o": opt}
-        rec["gaps"] = _p_gaps(state, refs[tag], mesh)
+        rec["gaps"] = _p_gaps(state, ref, mesh)
         if tag == "P1":                  # held against the resumed step
             rec["digest"] = _p_digest(state)
         rec["param_bytes"] = sum(t.to_local().numel()
@@ -4082,6 +4246,12 @@ def p_rank(rank: int, device, tags: tuple, seed: int, refs: dict,
         gc.collect()
         torch.cuda.empty_cache()     # the next run's ranks share the card
         rec["s"] = time.perf_counter() - t_run
+        dist.barrier()               # every rank has read the reference
+        if rank == 0:
+            with open(saved, "rb") as f:
+                rec["one"] = pickle.load(f)
+            if not keep:
+                shutil.rmtree(ref, ignore_errors=True)
         out[tag] = rec
     return out
 
@@ -4189,6 +4359,14 @@ def p_readings(tag: str, ranks: list, one: dict) -> dict:
         "launches": {k: sum(r["launches"].get(k, 0) for r in ranks)
                      for k in r0["launches"]},
         "sharded_s": max(r["s"] for r in ranks), "unsharded_s": one["s"]}
+    if cfg.n_image_tokens:
+        rec["image_tokens"], rec["gate"] = cfg.n_image_tokens, I_GATE
+    if r0["slstm_loop"]["loops"]:
+        # the first step's loops (forward, recomputed forward, backward)
+        loop = dict(r0["slstm_loop"])
+        loop["collectives_a_token"] = sum(loop["collectives"].values()) / \
+            loop["tokens"]
+        rec["slstm_loop"] = loop
     if cfg.n_experts:
         rec["aux_sharded"], rec["aux_unsharded"] = r0["aux"], one["aux"]
         rec["gap_aux"] = rel(r0["aux"], one["aux"])
@@ -4241,31 +4419,25 @@ P_TAGS = tuple(P_RUNS)
 
 
 def drive_sharded_train(seed: int, card: str, tags=P_TAGS) -> dict:
-    """Phase P: each run of ``tags`` unsharded on cuda:0 first (its state
-    after the last step saved for the ranks, the model freed), then all of
-    them on ``spmd.card_layout(M_PROCS)`` in one spawn, then P1's
-    checkpoint restored by fresh ranks whose step P_CKPT_AFTER + 1 must
-    equal the first ranks' bit for bit.  Each run held to its bounds
-    (P_TOL; P3's aux loss to P_AUX_TOL, nonzero), its ranks' parameter
-    and optimizer bytes to the plan's."""
-    import torch
+    """Phases P and Q: every run of ``tags`` on ``spmd.card_layout(M_PROCS)``
+    in one spawn, each run first unsharded on cuda:0 by rank 0
+    (``p_rank``), then P1's checkpoint restored by fresh ranks whose step
+    P_CKPT_AFTER + 1 must equal the first ranks' bit for bit.  Each run
+    held to its bounds (P_TOL; P3's aux loss to P_AUX_TOL, nonzero), its
+    ranks' parameter and optimizer bytes to the plan's, Q2's sLSTM loop to
+    no collective."""
     from repro_torch.launch import spmd
 
     layout = spmd.card_layout(M_PROCS)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_p_")
     try:
-        refs, ones = {}, {}
-        for tag in tags:
-            refs[tag] = os.path.join(tmp, f"unsharded_{tag}")
-            t0 = time.perf_counter()
-            ones[tag] = p_unsharded(tag, seed, refs[tag])
-            ones[tag]["s"] = time.perf_counter() - t0
         ckpt_dir = os.path.join(tmp, "ckpt")
-        print(f"phase P: {M_PROCS} processes, backend {layout[0]}, devices "
-              f"{[str(d) for d in layout[1]]}")
+        print(f"phases P and Q: {M_PROCS} processes, backend {layout[0]}, "
+              f"devices {[str(d) for d in layout[1]]}")
         t0 = time.perf_counter()
         ranks = spmd.run(p_rank, layout[1], layout[0],
-                         (tuple(tags), seed, refs, ckpt_dir))
+                         (tuple(tags), seed, os.path.join(tmp, "refs"),
+                          ckpt_dir))
         spawn_s = time.perf_counter() - t0
         resumed = None
         if "P1" in tags:
@@ -4275,9 +4447,10 @@ def drive_sharded_train(seed: int, card: str, tags=P_TAGS) -> dict:
             resume_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    out = {"backend": layout[0], "spawn_s": spawn_s, "launches": {}}
+    out = {"backend": layout[0], "spawn_s": spawn_s,
+           "launches": {"P": {}, "Q": {}}}
     for tag in tags:
-        r = p_readings(tag, [x[tag] for x in ranks], ones[tag])
+        r = p_readings(tag, [x[tag] for x in ranks], ranks[0][tag]["one"])
         tol = P_TOL[tag]
         r["tol"] = tol
         if tag == "P1":
@@ -4315,13 +4488,18 @@ def drive_sharded_train(seed: int, card: str, tags=P_TAGS) -> dict:
                  f"parameter and {r['opt_bytes_per_rank']} optimizer "
                  f"bytes, the plan {r['plan_param_bytes']} and "
                  f"{r['plan_opt_bytes']} a position")
+        if "slstm_loop" in r and (r["slstm_loop"]["collectives"] or
+                                  not r["slstm_loop"]["backwards"]):
+            fail(f"phase {tag}: the sLSTM's time loop issued collectives "
+                 f"in step 1: {r['slstm_loop']}")
         if any(r["launches"].values()):
             fail(f"phase {tag}: the train path launched {r['launches']}")
         out[tag] = {k: r[k] for k in ("gap_metrics", "gap_step1_max",
                                       "gap_leaves_max", "sharded_s",
                                       "unsharded_s")}
+        counts = out["launches"][tag[0]]
         for k, n in r["launches"].items():
-            out["launches"][k] = out["launches"].get(k, 0) + n
+            counts[k] = counts.get(k, 0) + n
     return out
 
 
@@ -5000,8 +5178,13 @@ def _time(fn) -> float:
     return start.elapsed_time(end) / (TIMED_ROUNDS * TIMED_BATCHES)
 
 
-A_KEYS = 1 << 23          # phase A's OSM-like keys (``--keys``)
-D_KEYS = 1 << 22          # phase D's ar keys (``--shard-keys``)
+# phase A's OSM-like keys (``--keys``): 1 << 23 until phase Q, whose ~270 s
+# (an NVIDIA H100 80GB HBM3, 700.00 W) this cut and P_RUNS' pay for
+A_KEYS = 1 << 22
+# phase D's ar keys (``--shard-keys``): 1 << 22 until phase Q; with the cuts
+# above the smoke took 977.3 s on one host and 1,101.8 s on another (the
+# host-bound phases A-L 144 s slower; the same card), so D's load is halved
+D_KEYS = 1 << 21
 
 
 def main() -> int:
@@ -5012,7 +5195,7 @@ def main() -> int:
     ap.add_argument("--shard-keys", type=int, default=D_KEYS,
                     help="ar keys loaded into the sharded store of phases "
                          "D and E (the bench_dist_recovery config at "
-                         "4M keys instead of its 128K)")
+                         "2M keys instead of its 128K)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--first-version", metavar="DIR",
                     help="time every kernel whose .cu DIR holds against "
@@ -5222,10 +5405,11 @@ def main() -> int:
     ops.reset_launches()         # phase P: the sharded train step
     t0 = time.perf_counter()
     rec_p = drive_sharded_train(args.seed, card)
-    print(f"phase P {time.perf_counter() - t0:.1f}s (spawn "
+    print(f"phases P and Q {time.perf_counter() - t0:.1f}s (spawn "
           f"{rec_p['spawn_s']:.1f}s)")
     for k in checks:
-        k["launches_p"] = rec_p["launches"].get(k["name"], 0)
+        k["launches_p"] = rec_p["launches"]["P"].get(k["name"], 0)
+        k["launches_q"] = rec_p["launches"]["Q"].get(k["name"], 0)
     for k in checks:
         other = {tag: k[tag]["mismatches"]
                  for tag in ("wide_check", "shard_shape", "level_model_shape",

@@ -26,11 +26,9 @@ the reference's keys; what each means here is in ``launch/README.md``:
   divided evenly over the positions (``cost_split``);
 - ``collectives``: the parameter and gradient traffic the specs imply
   (``collectives_scope``); for a decode or prefill cell, and a train cell
-  of the blocks whose train step runs on a process mesh
-  (``steps.MESH_TRAIN_BLOCKS``) on a mesh of two axes
-  (:func:`mesh_trains`), every collective of the step run sharded
-  on ``DTensor``s at one position of a fake process group
-  (:func:`sharded_plan`), which also gives its ``temp_bytes``.
+  on a mesh of two axes (:func:`mesh_trains`), every collective of the
+  step run sharded on ``DTensor``s at one position of a fake process
+  group (:func:`sharded_plan`), which also gives its ``temp_bytes``.
 
 The store cell (``--store``) runs: the range-partitioned state of the
 paper's workload (2^30 keys, one GET of 2^20 probes) built on the
@@ -75,8 +73,8 @@ from .plan import (ShardMeter, StepMeter, fake_process_group,
                    param_collectives, tree_bytes)
 from .sharding import (DEFAULT_RULES, Sharded, ShardingRules, _axes_of,
                        distribute, logical_to_spec)
-from .steps import (MESH_TRAIN_BLOCKS, TrainConfig, build_prefill_step,
-                    build_serve_step, build_train_step, opt_state_specs)
+from .steps import (TrainConfig, build_prefill_step, build_serve_step,
+                    build_train_step, opt_state_specs)
 
 __all__ = ["run_cell", "plan_cell", "sharded_plan", "mesh_trains",
            "run_store_cell", "sweep", "main", "store_row",
@@ -236,7 +234,7 @@ def plan_cell(cfg, shape: ShapeSpec, mesh: Mesh, *, res: dict | None = None,
     try:
         with StepMeter() as meter, FlopCounterMode(display=False) as fc:
             outputs = run()
-        if shape.kind != "train" or mesh_trains(cfg, mesh):
+        if shape.kind != "train" or mesh_trains(mesh):
             sharded = sharded_plan(cfg, shape, mesh, rules, tcfg)
     finally:
         att.FLASH_KV_CHUNK = old_chunk
@@ -274,17 +272,13 @@ def plan_cell(cfg, shape: ShapeSpec, mesh: Mesh, *, res: dict | None = None,
     return res
 
 
-def mesh_trains(cfg, mesh) -> bool:
-    """Whether a train cell of ``cfg`` on ``mesh`` is planned on DTensor
-    placements: its train step runs on a process mesh (every block in
-    ``steps.MESH_TRAIN_BLOCKS``), and the mesh has two axes.  On the
-    (2, 16, 16) mesh DTensor's redistribution planner (torch 2.13) spends
-    over ten minutes of CPU on the train step's three-axis layouts
-    (mixtral-8x22b, one unit), so those cells keep the parameters' and
-    gradients' count."""
-    return len(mesh.shape) == 2 and {
-        st.block for st in cfg.prologue + cfg.pattern} <= \
-        set(MESH_TRAIN_BLOCKS)
+def mesh_trains(mesh) -> bool:
+    """Whether a train cell on ``mesh`` is planned on DTensor placements:
+    the mesh has two axes.  On the (2, 16, 16) mesh DTensor's
+    redistribution planner (torch 2.13) spends over ten minutes of CPU on
+    the train step's three-axis layouts (mixtral-8x22b, one unit), so
+    those cells keep the parameters' and gradients' count."""
+    return len(mesh.shape) == 2
 
 
 def sharded_plan(cfg, shape: ShapeSpec, mesh: Mesh,

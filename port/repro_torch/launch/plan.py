@@ -131,12 +131,13 @@ class ShardMeter(StepMeter):
     on ``DTensor``s, whose shapes are global, nor those of its sharding
     propagation), and ``collectives``: the result bytes of every
     collective the position takes part in, by the reference's five kinds
-    (``counts``: how many)."""
+    (``counts``: how many; ``log``: their kinds in the order issued)."""
 
     def __init__(self) -> None:
         super().__init__()
         self.collectives = dict.fromkeys(COLLECTIVES, 0)
         self.counts = dict.fromkeys(COLLECTIVES, 0)
+        self.log: list = []
         self._propagating = 0
         self._saved: list = []
 
@@ -175,6 +176,7 @@ class ShardMeter(StepMeter):
         self._count(func, args, kwargs, out)
         kind = _kind(func)
         if kind is not None:
+            self.log.append(kind)
             self.counts[kind] += 1
             self.collectives[kind] += sum(
                 _nbytes(t) for t in _leaves(out)

@@ -446,36 +446,73 @@ class _Nll(torch.autograd.Function):
 
 def by_heads(t, shape: tuple):
     """``t.reshape(shape)``, where one dimension of ``t`` is cut in two
-    (H * hd into heads of hd, or H heads into KV groups of g).  On a
-    DTensor outside inference mode, whose cut dimension is split over a
-    count of positions that does not divide the first of the two
-    (qwen2-0.5b's 14 heads, or mixtral's 8 KV groups, on a "model" axis of
-    16), that split is gathered whole first, as GSPMD gathers a split that
-    does not divide: DTensor's reshape is then a strict view and refuses
-    to cut unevenly (inside inference mode it copies)."""
+    (H * hd into heads of hd, or H heads into KV groups of g), or two are
+    merged into one (heads of hd into H * hd).  On a DTensor outside
+    inference mode, whose cut dimension is split over a count of positions
+    that does not divide the first of the two (qwen2-0.5b's 14 heads, or
+    mixtral's 8 KV groups, on a "model" axis of 16), that split is
+    gathered whole first, as GSPMD gathers a split that does not divide:
+    DTensor's reshape is then a strict view and refuses to cut unevenly
+    (inside inference mode it copies).  A merge's backward is the cut of
+    its gradient, which DTensor may hand back split on the merged
+    dimension (by the product it feeds): there the gradient is gathered
+    so first."""
     from torch.distributed.tensor import DTensor
 
-    if isinstance(t, DTensor) and not torch.is_inference_mode_enabled():
-        d = next(i for i, (a, b) in enumerate(zip(t.shape, shape)) if a != b)
-        n = math.prod(t.device_mesh.shape[a] for a in split_axes(t, d))
-        if shape[d] % n:
-            t = whole_over(t, (d,))
+    if not isinstance(t, DTensor) or torch.is_inference_mode_enabled():
+        return t.reshape(shape)
+    d = next(i for i, (a, b) in enumerate(zip(t.shape, shape)) if a != b)
+    if len(shape) < t.ndim:
+        return _CutGrad.apply(t.reshape(shape), d, t.shape[d])
+    if shape[d] % math.prod(t.device_mesh.shape[a]
+                            for a in split_axes(t, d)):
+        t = whole_over(t, (d,))
     return t.reshape(shape)
 
 
-def on_pieces(lead, others: tuple, dims: tuple):
+class _CutGrad(torch.autograd.Function):
+    """The identity, whose gradient's dimension ``d`` is gathered whole
+    where its split does not divide ``first`` (the merged dimension's
+    first part, which the reshape's backward cuts it into)."""
+
+    @staticmethod
+    def forward(ctx, t, d, first):
+        ctx.d, ctx.first = d, first
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate
+
+        if ctx.first % math.prod(g.device_mesh.shape[a]
+                                 for a in split_axes(g, ctx.d)):
+            g = g.redistribute(g.device_mesh, tuple(
+                Replicate() if p.is_shard(ctx.d) else p
+                for p in g.placements))
+        return g, None, None
+
+
+def on_pieces(lead, others: tuple, dims: tuple, weights: tuple = ()):
     """For work that runs independently along ``dims`` (a batch and heads):
     when ``lead`` is a DTensor outside inference mode split only on
-    ``dims``, and each of ``others`` (of ``lead``'s rank) can be laid out
-    alike, returns (the local pieces of ``lead`` and of ``others`` so laid
-    out, ``wrap``), ``wrap(local, shape)`` making a result of global
-    ``shape`` laid out as ``lead`` from this rank's piece.  Else None.
+    ``dims``, and each of ``others`` (whose dimensions ``dims`` mean what
+    the lead's do) can be laid out alike, returns (the local pieces of
+    ``lead``, of ``others`` and of ``weights`` so laid out, ``wrap``),
+    ``wrap(local, shape)`` making a result of global ``shape`` laid out as
+    ``lead`` from this rank's piece.  Else None.
+
+    ``weights`` are (tensor, {lead dimension: its dimension}) pairs: a
+    value the same for every row of the batch (a parameter), split as the
+    lead on the mapped dimensions (heads) and whole on the rest.  Its
+    piece's gradient is a partial sum over the mesh axes that split the
+    lead on the other dimensions (the batch), which autograd then reduces
+    into the weight's layout.
 
     DTensor's strategies would run such work (attention's products) as
     batched products, whose flatten of two split batch dimensions torch
     2.11 refuses outside inference mode; on the pieces each rank runs its
     own batch rows and heads, with no collective."""
-    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     if not isinstance(lead, DTensor) or torch.is_inference_mode_enabled():
         return None
@@ -483,15 +520,23 @@ def on_pieces(lead, others: tuple, dims: tuple):
            for p in lead.placements):
         return None
     sizes = lead.device_mesh.shape
-    for t in others:
-        if not isinstance(t, DTensor) or t.ndim != lead.ndim:
+    split = [(d, math.prod(sizes[a] for a in split_axes(lead, d)))
+             for d in dims]
+    pairs = [(t, {d: d for d in dims}) for t in others] + list(weights)
+    for t, dmap in pairs:
+        if not isinstance(t, DTensor) or \
+                any(t.shape[dmap[d]] % n for d, n in split if d in dmap):
             return None
-        for d in dims:
-            n = math.prod(sizes[a] for a in split_axes(lead, d))
-            if t.shape[d] % n:
-                return None
-    pieces = [lead.to_local()] + [laid_out_as(whole_over(t, ()), lead)
-                                  .to_local() for t in others]
+    pieces = [lead.to_local()]
+    for t, dmap in pairs:
+        places = tuple(Shard(dmap[p.dim]) if p.is_shard() and p.dim in dmap
+                       else Replicate() for p in lead.placements)
+        grads = tuple(Partial() if p.is_shard() and p.dim not in dmap
+                      else q for p, q in zip(lead.placements, places))
+        t = whole_over(t, ())
+        if tuple(t.placements) != places:
+            t = t.redistribute(t.device_mesh, places)
+        pieces.append(t.to_local(grad_placements=grads))
 
     def wrap(local, shape):
         return from_pieces(local.contiguous(), tuple(lead.placements),

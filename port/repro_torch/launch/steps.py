@@ -13,14 +13,11 @@ when the step is built.  On a process mesh (``core.mesh.ProcessMesh``,
 one process a position) the serve and prefill steps run sharded: the
 parameters, caches and batch are ``DTensor``s (``convert.shard_params``,
 ``inputs.shard_caches``, ``inputs.shard_batch``) and so are the logits
-(``full_tensor()`` gathers them).  So does the train step, for the
-``attn_mlp``, ``attn_moe``, ``mla_dense`` and ``mla_moe`` stacks: the
-parameters and the AdamW state are ``DTensor``s laid out by their specs
-(``convert.shard_params``, ``convert.shard_opt_state``), the loss is
-``sharding.cross_entropy`` and each gradient is redistributed to its
-parameter's placements before the update (``optim/adamw``).  The other
-blocks' train step on a process mesh raises ``NotImplementedError``
-(ROADMAP Queue 1 item 8a-v).
+(``full_tensor()`` gathers them).  So does the train step, for every
+block: the parameters and the AdamW state are ``DTensor``s laid out by
+their specs (``convert.shard_params``, ``convert.shard_opt_state``), the
+loss is ``sharding.cross_entropy`` and each gradient is redistributed to
+its parameter's placements before the update (``optim/adamw``).
 """
 
 from __future__ import annotations
@@ -42,12 +39,8 @@ from repro_torch.core.mesh import ProcessMesh
 
 from .sharding import ShardingRules, param_sharding, rules_ctx
 
-# the blocks whose train step runs on a process mesh
-MESH_TRAIN_BLOCKS = ("attn_mlp", "attn_moe", "mla_dense", "mla_moe")
-
 __all__ = ["TrainConfig", "build_train_step", "build_serve_step",
-           "build_prefill_step", "init_train_state", "opt_state_specs",
-           "MESH_TRAIN_BLOCKS"]
+           "build_prefill_step", "init_train_state", "opt_state_specs"]
 
 _ACC = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -84,15 +77,7 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     kilobytes of token ids) and split over the batch's axes again; the
     chunks' gradients are summed in whatever layout DTensor gives the sum,
     which the update reduces into the parameters' placements."""
-    if isinstance(mesh, ProcessMesh):
-        other = sorted({st.block for st in cfg.prologue + cfg.pattern}
-                       - set(MESH_TRAIN_BLOCKS))
-        if other:
-            raise NotImplementedError(
-                f"the train step of {', '.join(other)} on a process mesh "
-                "is ROADMAP Queue 1 item 8a-v")
-    elif mesh is not None:
-        mesh.device()                # a mesh of distinct devices raises
+    _check_mesh(mesh)
     if tcfg.remat not in REMATS:
         raise ValueError(tcfg.remat)
 

@@ -28,7 +28,7 @@ from .layers import Spec, rms_norm, rope, shard
 
 __all__ = ["gqa_shapes", "gqa_attention", "gqa_decode",
            "mla_shapes", "mla_attention", "mla_decode",
-           "cross_attn_shapes", "cross_attention", "causal_mask"]
+           "cross_attn_shapes", "cross_attention", "gated", "causal_mask"]
 
 NEG_INF = -1e30
 
@@ -59,7 +59,7 @@ def _sdpa_dense(q, k, v, mask):
     scores = scores.float() + mask
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgst,btkh->bskgh", probs, v)
-    return out.reshape(B, S, H, v.shape[-1])
+    return by_heads(out, (B, S, H, v.shape[-1]))
 
 
 def _sdpa_chunked(q, k, v, window):
@@ -105,7 +105,7 @@ def _sdpa_chunked(q, k, v, window):
         m = m_new
     lt = torch.clamp(l.permute(0, 3, 1, 2)[..., None], min=1e-30)
     out = (acc / lt).to(v.dtype)
-    return out.reshape(B, S, H, vd)
+    return by_heads(out, (B, S, H, vd))
 
 
 def _sdpa(q, k, v, mask, window=None, chunked=None):
@@ -183,7 +183,7 @@ def gqa_attention(x, p, cfg, positions=None, window=None):
     else:
         out = _sdpa(q, k, v, causal_mask(S, S, window, device=x.device),
                     window=window)
-    out = out.reshape(B, S, cfg.n_heads * cfg.hd)
+    out = by_heads(out, (B, S, cfg.n_heads * cfg.hd))
     return out @ p["wo"]
 
 
@@ -256,7 +256,7 @@ def mla_attention(x, p, cfg, positions=None):
         out = _sdpa(q_full, k_full, v, None, chunked=True)   # H == KV here
     else:
         out = _sdpa(q_full, k_full, v, causal_mask(S, S, device=x.device))
-    out = out.reshape(B, S, H * vd)
+    out = by_heads(out, (B, S, H * vd))
     return out @ p["wo"]
 
 
@@ -315,12 +315,21 @@ def cross_attention(x, kv_src, p, cfg):
     B, S, D = x.shape
     I = kv_src.shape[1]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    q = by_heads(x @ p["wq"], (B, S, H, hd))
     # bf16 embeddings into f32 weights promote, as ``jnp.matmul`` does
     kv_src = kv_src.to(torch.promote_types(kv_src.dtype, p["wk"].dtype))
-    k = (kv_src @ p["wk"]).reshape(B, I, KV, hd)
-    v = (kv_src @ p["wv"]).reshape(B, I, KV, hd)
+    k = by_heads(kv_src @ p["wk"], (B, I, KV, hd))
+    v = by_heads(kv_src @ p["wv"], (B, I, KV, hd))
+    # laid out by batch and heads, as gqa_attention's q and k
+    q = shard(q, ("batch", "seq", "heads", None))
+    k = shard(k, ("batch", "seq", "kv_heads", None))
     mask = torch.zeros((S, I), dtype=torch.float32, device=x.device)
     out = _sdpa(q, k, v, mask)
-    out = out.reshape(B, S, H * hd) @ p["wo"]
-    return out * torch.tanh(p["gate"]).to(out.dtype)
+    out = by_heads(out, (B, S, H * hd)) @ p["wo"]
+    return gated(out, p["gate"])
+
+
+def gated(y, gate):
+    """``y`` scaled by ``tanh(gate)``, a (1,) f32 gate (0 at init: the
+    identity of the residual it feeds)."""
+    return y * torch.tanh(gate).to(y.dtype)

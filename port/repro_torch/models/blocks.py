@@ -20,9 +20,9 @@ from __future__ import annotations
 
 import torch
 
-from .attention import (cross_attention, cross_attn_shapes, gqa_attention,
-                        gqa_decode, gqa_shapes, mla_attention, mla_decode,
-                        mla_shapes)
+from .attention import (cross_attention, cross_attn_shapes, gated,
+                        gqa_attention, gqa_decode, gqa_shapes, mla_attention,
+                        mla_decode, mla_shapes)
 from .layers import (Spec, apply_norm, glu_mlp, mlp_shapes, norm_shapes,
                      shard)
 from .moe import moe_ffn, moe_shapes
@@ -317,7 +317,7 @@ class CrossAttnMlp:
         x = x + cross_attention(h, img, p["xattn"], cfg)
         h = apply_norm(x, p["ln2"], cfg)
         y = glu_mlp(h, p["mlp"], cfg.act)
-        return x + y * torch.tanh(p["mlp_gate"]).to(y.dtype), 0.0
+        return x + gated(y, p["mlp_gate"]), 0.0
 
     @staticmethod
     def decode(x, p, cfg, cache, aux):

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.launch.sharding import laid_out_as
+from repro_torch.launch.sharding import by_heads, laid_out_as, on_pieces
 
 from .attention import _sqrt_as
 from .layers import Spec, rms_norm, shard
@@ -50,6 +50,12 @@ __all__ = ["mamba_shapes", "mamba", "mamba_decode",
 def _softplus(x):
     """``jax.nn.softplus`` (``logaddexp(x, 0)``): no linear threshold."""
     return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def _log_sigmoid(x):
+    """``jax.nn.log_sigmoid`` (``-softplus(-x)``), of ops whose backward
+    DTensor lays out (it has no strategy for ``log_sigmoid_backward``)."""
+    return -_softplus(-x)
 
 
 @functools.lru_cache(maxsize=None)
@@ -303,9 +309,21 @@ def _by_heads(t, H=None):
     on a process mesh the products with the "mlp"-split rows of ``wq``,
     ``wk``, ``wv``, ``wi`` and ``wf`` are partial sums over "model",
     reduced here once and split by heads, so that the cell runs head by
-    head on each rank with no collective."""
+    head on each rank with no collective (``sharding.by_heads`` gathers a
+    split that does not fall on head boundaries, xlstm's 4 heads on a
+    "model" axis of 16)."""
     t = shard(t, ("batch",) + ("seq",) * (t.ndim - 2) + ("heads",))
-    return t if H is None else t.reshape(t.shape[:-1] + (H, -1))
+    if H is None:
+        return t
+    return by_heads(t, tuple(t.shape[:-1]) + (H, t.shape[-1] // H))
+
+
+def _mlstm_cell(q, k, v, logi, logf):
+    """The parallel form up to ``MLSTM_CHUNK`` tokens, the chunkwise form
+    above."""
+    if q.shape[2] > MLSTM_CHUNK:
+        return _mlstm_chunkwise(q, k, v, logi, logf, MLSTM_CHUNK)
+    return _mlstm_parallel(q, k, v, logi, logf)
 
 
 def mlstm(x, p, cfg):
@@ -319,12 +337,17 @@ def mlstm(x, p, cfg):
     k = _by_heads(hin @ p["wk"], H).transpose(1, 2)
     v = _by_heads(hin @ p["wv"], H).transpose(1, 2)
     logi = _by_heads(hin @ p["wi"]).transpose(1, 2).float()   # (B,H,S)
-    logf = F.logsigmoid(_by_heads(hin @ p["wf"]).transpose(1, 2).float())
-    if S > MLSTM_CHUNK:
-        hout = _mlstm_chunkwise(q, k, v, logi, logf, MLSTM_CHUNK)
+    logf = _log_sigmoid(_by_heads(hin @ p["wf"]).transpose(1, 2).float())
+    # in training on a process mesh, on each rank's batch rows and heads
+    # (its einsums take (B, H) as batch dimensions, a flatten torch 2.11
+    # refuses on two split dimensions)
+    split = on_pieces(q, (k, v, logi, logf), (0, 1))
+    if split is None:
+        hout = _mlstm_cell(q, k, v, logi, logf)
     else:
-        hout = _mlstm_parallel(q, k, v, logi, logf)
-    hout = hout.transpose(1, 2).reshape(B, S, Di)
+        pieces, wrap = split
+        hout = wrap(_mlstm_cell(*pieces), tuple(v.shape))
+    hout = by_heads(hout.transpose(1, 2), (B, S, Di))
     hout = rms_norm(hout, p["out_norm"], cfg.norm_eps)
     y = hout * F.silu(z)
     return y @ p["down"]
@@ -347,7 +370,7 @@ def mlstm_decode(x, p, cfg, cache):
     k = laid_out_as((hin @ p["wk"]).reshape(B, H, hd), cache["n"])
     v = shard((hin @ p["wv"]).reshape(B, H, hd), ("batch", None, None))
     logi = shard(hin @ p["wi"], ("batch", None)).float()      # (B,H)
-    logf = F.logsigmoid(shard(hin @ p["wf"], ("batch", None)).float())
+    logf = _log_sigmoid(shard(hin @ p["wf"], ("batch", None)).float())
     m_new = torch.maximum(logf + cache["m"], logi)
     fs = torch.exp(logf + cache["m"] - m_new)[..., None]
     is_ = torch.exp(logi - m_new)[..., None]
@@ -380,17 +403,15 @@ def slstm_shapes(cfg, dtype):
     }
 
 
-def _slstm_step(p, cfg, carry, wx):
-    """carry: (c, n, h, m) each (B,H,dh) / m (B,H).  wx: (B,4D) precomputed."""
+def _slstm_step(R, bias, carry, wx):
+    """carry: (c, n, h, m) each (B,H,dh) / m (B,H).  wx: (B,H,4dh)
+    precomputed; R (H,dh,4dh), bias (H,4dh)."""
     c, n, h, m = carry
-    B = wx.shape[0]
-    H = cfg.slstm_heads
-    dh = cfg.d_model // H
-    rec = torch.einsum("bhd,hdk->bhk", h.to(p["R"].dtype), p["R"])  # (B,H,4dh)
-    gates = wx.reshape(B, H, 4 * dh) + rec + p["bias"].reshape(H, 4 * dh)
+    rec = torch.einsum("bhd,hdk->bhk", h.to(R.dtype), R)  # (B,H,4dh)
+    gates = wx + rec + bias
     gi, gf, gz, go = torch.chunk(gates.float(), 4, dim=-1)
     # per-head scalar-ish gating (keep per-unit gates; stabilizer per unit)
-    logf = F.logsigmoid(gf)
+    logf = _log_sigmoid(gf)
     # m[..., None] as a reshape: on a DTensor, a view of the cache's row
     # (made outside inference mode) raises in it
     m = m.reshape(m.shape + (1,))
@@ -404,33 +425,57 @@ def _slstm_step(p, cfg, carry, wx):
     return (c_new, n_new, h_new, m_out), h_new
 
 
+def _slstm_loop(wx, R, bias):
+    """wx (B,S,H,4dh) -> the hidden states (B,S,H,dh) f32, step by step
+    from zero states."""
+    B, S, H, k4 = wx.shape
+    zeros = torch.zeros((B, H, k4 // 4), dtype=torch.float32,
+                        device=wx.device)
+    carry = (zeros, zeros, zeros,
+             torch.zeros((B, H), dtype=torch.float32, device=wx.device))
+    hs = []
+    for t in range(S):
+        carry, h = _slstm_step(R, bias, carry, wx[:, t])
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
 def slstm(x, p, cfg):
     """x (B,S,D): sequential loop over time (inherent to sLSTM)."""
     B, S, D = x.shape
     H = cfg.slstm_heads
     dh = D // H
-    # laid out as "mlp" once (a layout hint: DTensor may contract the
-    # product split over "data", and the loop would then reduce each
-    # step's slice of the partial sum, a collective a token)
+    # laid out as "mlp" once, then by heads (layout hints: DTensor may
+    # contract the product split over "data", and the loop would then
+    # reduce each step's slice of the partial sum, a collective a token)
     wx = shard(x @ p["W"], ("batch", "seq", "mlp"))      # (B,S,4D)
-    zeros = torch.zeros((B, H, dh), dtype=torch.float32, device=x.device)
-    carry = (zeros, zeros, zeros,
-             torch.zeros((B, H), dtype=torch.float32, device=x.device))
-    hs = []
-    for t in range(S):
-        carry, h = _slstm_step(p, cfg, carry, wx[:, t])
-        hs.append(h)
-    hs = torch.stack(hs, dim=1).reshape(B, S, D).to(x.dtype)
+    wx = shard(by_heads(wx, (B, S, H, 4 * dh)), ("batch", "seq", "heads",
+                                                 None))
+    bias = by_heads(p["bias"], (H, 4 * dh))
+    # in training on a process mesh, the loop runs on each rank's batch
+    # rows and heads (plain tensors: no collective and no DTensor dispatch
+    # a token); the gradients of R and the bias come back partial sums
+    # over the batch's axes
+    split = on_pieces(wx, (), (0, 2), ((p["R"], {2: 0}), (bias, {2: 0})))
+    if split is None:
+        hs = _slstm_loop(wx, p["R"], bias)
+    else:
+        pieces, wrap = split
+        hs = wrap(_slstm_loop(*pieces), (B, S, H, dh))
+    hs = by_heads(hs, (B, S, D)).to(x.dtype)
     hs = rms_norm(hs, p["out_norm"], cfg.norm_eps)
     return hs @ p["down"]
 
 
 def slstm_decode(x, p, cfg, cache):
     B = x.shape[0]
+    H = cfg.slstm_heads
+    D = cfg.d_model
     wx = shard(x[:, 0] @ p["W"], ("batch", "mlp"))
     carry = (cache["c"], cache["n"], cache["h"], cache["m"])
-    (c, n, hh, m), h = _slstm_step(p, cfg, carry, wx)
-    D = cfg.d_model
+    (c, n, hh, m), h = _slstm_step(
+        p["R"], p["bias"].reshape(H, 4 * D // H), carry,
+        wx.reshape(B, H, 4 * D // H))
     hs = rms_norm(h.reshape(B, D).to(x.dtype), p["out_norm"], cfg.norm_eps)
     out = (hs @ p["down"])[:, None, :]
     return out, {"c": c, "n": n, "h": hh, "m": m}

@@ -1,12 +1,12 @@
 #!/usr/bin/env python
-"""chip_smoke.py's phase P alone: the sharded train step on four
+"""chip_smoke.py's phases P and Q alone: the sharded train step on four
 processes of the card (``chip_smoke.drive_sharded_train``), its lines
 and its summary printed, then the card's name and power limit.
 
-    python port/scripts/phase_p.py [--seed N] [--tags P1 P2 P3]
+    python port/scripts/phase_p.py [--seed N] [--tags P1 P2 P3 Q1 Q2 Q3]
 
 Needs a CUDA card.  The ranks are spawned and import ``chip_smoke`` by
-name, which is why phase P runs from a script file and not from
+name, which is why the phases run from a script file and not from
 ``python -c``.
 """
 
@@ -40,7 +40,7 @@ def main() -> int:
     card = chip_smoke.card_line()
     t0 = time.perf_counter()
     out = chip_smoke.drive_sharded_train(args.seed, card, tuple(args.tags))
-    print(json.dumps({"phase": "P", **out,
+    print(json.dumps({"phase": "PQ", **out,
                       "s": time.perf_counter() - t0, "card": card}))
     print(card)
     return 0

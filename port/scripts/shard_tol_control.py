@@ -1,12 +1,12 @@
 #!/usr/bin/env python
-"""Phase M1's, N1's, O1's or O3's logit comparison, or phase P1's, P2's
-or P3's train-step comparison, for the sound port and for controls that
-carry a deliberate fault in the sharded run: the readings that
-chip_smoke.py's M_TOL["M1"], N_TOL["N1"], O_TOL["O1"], O_TOL["O3"] and
-P_TOL, P_AUX_TOL are set between.
+"""Phase M1's, N1's, O1's or O3's logit comparison, or phase P1's, P2's,
+P3's, Q1's, Q2's or Q3's train-step comparison, for the sound port and
+for controls that carry a deliberate fault in the sharded run: the
+readings that chip_smoke.py's M_TOL["M1"], N_TOL["N1"], O_TOL["O1"],
+O_TOL["O3"] and P_TOL, P_AUX_TOL are set between.
 
-    python port/scripts/shard_tol_control.py [--tag M1|N1|O1|O3|P1|P2|P3]
-        [--seeds 0 1 2]
+    python port/scripts/shard_tol_control.py
+        [--tag M1|N1|O1|O3|P1|P2|P3|Q1|Q2|Q3] [--seeds 0 1 2] [--ulp]
 
 Needs a CUDA card.  For each of SEEDS it runs the phase as
 ``chip_smoke.py`` does (M1: command-r-plus-104b at full width, 4 units;
@@ -32,22 +32,33 @@ fault into the sharded run's processes only, on seed 0:
                   back: the cache keeps the state the decode began from
   conv_late       (O1) the conv history kept one slot late: the K-1
                   oldest of the K inputs, not the newest
-  slstm_stale     (O3) the sLSTM carry one step stale: each step hands
+  slstm_stale     (O3, Q2) the sLSTM carry one step stale: each step hands
                   on the carry the step before it made, so every step
                   (and the decode's cache) starts from the state one step
-                  behind
-  grads_unreduced (P) the second data rank's gradients not reduced over
+                  behind (in training each time loop starts anew)
+  conv_own_rows   (Q1) Mamba's conv_w gradient taken from each rank's own
+                  rows: its partial sum over "data" left unreduced
+  gate_partial    (Q3) the cross-attention block's gates' gradients left
+                  partial over "data": the gated products on each rank's
+                  rows, each rank updating by its own rows' share
+  grads_unreduced (P, Q) the second data rank's gradients not reduced over
                   "data": it takes its own tokens' partial sum, as
                   autograd hands it back, for the gradient, wherever
                   the step reduces it after (every rank runs the same
                   collectives)
-  local_norm      (P) the clip's global norm over each rank's own pieces
+  local_norm      (P, Q) the clip's global norm over each rank's own pieces
                   (no all-reduce), so each rank clips by its own scale
   aux_local       (P3) the MoE aux loss over each rank's own tokens: its
                   counts and probability sums not summed over "data"
 
-For P1, P2 and P3 it runs ``chip_smoke.drive_sharded_train``'s steps
-(the unsharded run, then the ranks; P1 writes no checkpoint) and reads
+With ``--ulp`` (P1-P3, Q1-Q3) it runs no fault and no mesh: for each
+seed, the run unsharded twice on the card, the second's parameters each
+moved one ulp up on a random half of their entries, and it reads the same
+gaps between the two runs: how far a run's own rounding moves it.
+
+For P1-P3 and Q1-Q3 it runs ``chip_smoke.drive_sharded_train``'s steps
+(rank 0's unsharded run, kept for the seed's later spawns, then the
+ranks; P1 writes no checkpoint) and reads
 the loss and grad-norm gap (relative), the largest gap of m and v after
 the first step and of the parameters, master, m and v after the last
 step (of each leaf's largest magnitude) and, for P3, the aux loss's gap
@@ -59,6 +70,7 @@ Prints one JSON line a reading, then the card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import sys
@@ -79,7 +91,10 @@ FAULTS = {"M1": ("norm_bf16", "slot_late"),
           "O3": ("slstm_stale",),
           "P1": ("grads_unreduced", "local_norm"),
           "P2": ("grads_unreduced", "local_norm"),
-          "P3": ("grads_unreduced", "local_norm", "aux_local")}
+          "P3": ("grads_unreduced", "local_norm", "aux_local"),
+          "Q1": ("grads_unreduced", "local_norm", "conv_own_rows"),
+          "Q2": ("grads_unreduced", "local_norm", "slstm_stale"),
+          "Q3": ("grads_unreduced", "local_norm", "gate_partial")}
 
 
 def _layer_norm_bf16(x, scale, eps):
@@ -131,14 +146,63 @@ def _patch(fault) -> None:
                          torch.cat([cache["conv"], late], dim=1)[:, 1:]}
         ssm.mamba_decode = blocks.mamba_decode = faulty_decode
     elif fault == "slstm_stale":
-        step, held = ssm._slstm_step, {}
+        step, loop, held = ssm._slstm_step, ssm._slstm_loop, {}
 
-        def stale(p, cfg, carry, wx):
-            new, h = step(p, cfg, carry, wx)
+        def stale(R, bias, carry, wx):
+            new, h = step(R, bias, carry, wx)
             out = held.get("carry", carry)
             held["carry"] = new
             return out, h
-        ssm._slstm_step = stale
+
+        def fresh(wx, R, bias):          # a training loop starts anew
+            held.clear()
+            return loop(wx, R, bias)
+        ssm._slstm_step, ssm._slstm_loop = stale, fresh
+    elif fault == "conv_own_rows":
+        from torch.distributed.tensor import DTensor, Replicate
+        from repro_torch.launch import steps
+        update = steps.adamw_update
+
+        def own(path, g):
+            # the rank's own rows' partial sum over "data" taken as the
+            # gradient, unreduced
+            if not (isinstance(g, DTensor) and path[-1] == "conv_w"):
+                return g
+            d = g.device_mesh.mesh_dim_names.index("data")
+            if not g.placements[d].is_partial():
+                raise ValueError(f"{'.'.join(path)}'s gradient laid out "
+                                 f"as {g.placements}")
+            places = [Replicate() if i == d else pl
+                      for i, pl in enumerate(g.placements)]
+            return DTensor.from_local(g.to_local(), g.device_mesh, places,
+                                      run_check=False, shape=g.shape,
+                                      stride=g.stride())
+
+        def own_rows(params, grads, state, cfg, lr_scale=1.0):
+            return update(params, _map_paths(own, grads), state, cfg,
+                          lr_scale)
+        steps.adamw_update = own_rows
+    elif fault == "gate_partial":
+        import torch
+        import repro_torch.models.blocks as blocks
+        from torch.distributed.tensor import DTensor, Replicate
+        from repro_torch.launch import sharding
+        from repro_torch.models import attention
+        from repro_torch.models.layers import shard
+
+        def own_gate(y, gate):
+            # the product on each rank's rows, the gate's piece declared
+            # whole: its gradient is the rank's own rows' share, never
+            # summed over "data"
+            if not isinstance(y, DTensor):
+                return y * torch.tanh(gate).to(y.dtype)
+            y = shard(y, ("batch", "seq", None))
+            g = gate.to_local(grad_placements=tuple(
+                Replicate() for _ in gate.placements))
+            return sharding.from_pieces(
+                y.to_local() * torch.tanh(g).to(y.dtype),
+                tuple(y.placements), tuple(y.shape))
+        attention.gated = blocks.gated = own_gate
     elif fault == "grads_unreduced":
         import torch
         from torch.distributed.tensor import DTensor, Replicate
@@ -187,6 +251,12 @@ def _patch(fault) -> None:
         raise ValueError(fault)
 
 
+def _map_paths(fn, tree: dict, path: tuple = ()) -> dict:
+    """``fn(path, leaf)`` over a nested dict, ``path`` its keys."""
+    return {k: _map_paths(fn, v, path + (k,)) if isinstance(v, dict)
+            else fn(path + (k,), v) for k, v in tree.items()}
+
+
 def faulty_rank(rank, device, fault, tag, seed):
     """``chip_smoke.m_rank`` of run ``tag`` with ``fault`` patched into
     this process."""
@@ -194,31 +264,28 @@ def faulty_rank(rank, device, fault, tag, seed):
     return chip_smoke.m_rank(rank, device, (tag,), seed)[tag]
 
 
-def faulty_p_rank(rank, device, fault, tag, seed, refs):
-    """``chip_smoke.p_rank`` of run ``tag`` (no checkpoint) with ``fault``
-    patched into this process."""
-    _patch(fault)
-    return chip_smoke.p_rank(rank, device, (tag,), seed, refs, None)[tag]
+def faulty_p_rank(rank, device, fault, tag, seed, ref_root):
+    """``chip_smoke.p_rank`` of run ``tag`` (no checkpoint; the unsharded
+    reference kept in ``ref_root`` for the next spawn) with ``fault``
+    patched into this process after rank 0's unsharded run."""
+    return chip_smoke.p_rank(rank, device, (tag,), seed, ref_root, None,
+                             patch=functools.partial(_patch, fault),
+                             keep=True)[tag]
 
 
 def train_readings(tag: str, devices, backend, seeds=SEEDS) -> None:
-    """Phase P's run ``tag`` for each seed, sound and (seed 0) with each
-    fault, one JSON line each."""
+    """Phase P's or Q's run ``tag`` for each seed, sound and (seed 0) with
+    each fault, one JSON line each."""
     import shutil
     import tempfile
-    import torch
 
     for seed in seeds:
         tmp = tempfile.mkdtemp(prefix="shard_tol_p_")
         try:
-            refs = {tag: os.path.join(tmp, tag)}
-            one = chip_smoke.p_unsharded(tag, seed, refs[tag])
-            one["s"] = 0.0
-            torch.cuda.empty_cache()
             for fault in (None,) + (FAULTS[tag] if seed == 0 else ()):
                 ranks = spmd.run(faulty_p_rank, devices, backend,
-                                 (fault, tag, seed, refs))
-                r = chip_smoke.p_readings(tag, ranks, one)
+                                 (fault, tag, seed, tmp))
+                r = chip_smoke.p_readings(tag, ranks, ranks[0]["one"])
                 rec = {"tag": tag, "seed": seed, "fault": fault,
                        "backend": backend,
                        **{k: r[k] for k in (
@@ -226,12 +293,106 @@ def train_readings(tag: str, devices, backend, seeds=SEEDS) -> None:
                            "gap_step1", "gap_step1_max",
                            "gap_leaves", "gap_leaves_max", "routing",
                            "sharded_step_ms", "unsharded_step_ms",
-                           "sharded_s") if k in r}}
+                           "sharded_s", "slstm_loop") if k in r}}
                 if "gap_aux" in r:
                     rec.update(gap_aux=r["gap_aux"],
                                aux_sharded=r["aux_sharded"],
                                aux_unsharded=r["aux_unsharded"])
                 print(json.dumps(rec), flush=True)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _ulp_leaves(real):
+    """``chip_smoke.m_leaves`` with each leaf moved one ulp up on a
+    random half of its entries (a draw of its own, seeded 1)."""
+    def leaves(cfg, gen, device):
+        import torch
+        flip = torch.Generator(device=device).manual_seed(1)
+        for name, t in real(cfg, gen, device):
+            up = torch.rand(t.shape, generator=flip, device=t.device) < 0.5
+            yield name, torch.where(
+                up, torch.nextafter(t, torch.full_like(t, float("inf"))), t)
+    return leaves
+
+
+def _dir_gaps(got_dir: str, want_dir: str, step: int, kinds: tuple) -> dict:
+    """The largest gap of each of ``kinds`` of leaf between two unsharded
+    runs' states after ``step``, as a share of each leaf's largest
+    magnitude (``chip_smoke._p_gaps``' reading), and the three leaves
+    with the largest."""
+    import pathlib
+
+    import torch
+    from repro_torch.checkpoint.ckpt import _load
+
+    def leaves(root):
+        d = pathlib.Path(root) / f"step_{step:08d}"
+        with open(d / "manifest.json") as f:
+            return d, json.load(f)["leaves"]
+    (gd, got), (wd, want) = leaves(got_dir), leaves(want_dir)
+    out, worst = {k: 0.0 for k in kinds}, []
+    for kind in kinds:
+        prefix = "p." if kind == "params" else f"o.{kind}."
+        for name, meta in want.items():
+            if not name.startswith(prefix):
+                continue
+            w = _load(wd / meta["file"], meta["dtype"]).cuda().float()
+            g = _load(gd / got[name]["file"], meta["dtype"]).cuda().float()
+            scale = float(w.abs().max())
+            err = float((g - w).abs().max())
+            share = err / scale if scale else err
+            out[kind] = max(out[kind], share)
+            worst.append((share, name))
+    return out, [[n, s] for s, n in sorted(worst, reverse=True)[:3]]
+
+
+def ulp_readings(tag: str, seeds=SEEDS) -> None:
+    """Run ``tag`` unsharded twice for each seed, the second's parameters
+    moved one ulp (``_ulp_leaves``); one JSON line a seed with the gaps
+    between the two runs, read as ``chip_smoke.p_readings`` reads the
+    sharded run's."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    kinds = tuple(k for k in chip_smoke.P_LEAF_KINDS
+                  if k != "master" or chip_smoke.p_config(tag).dtype
+                  != "float32")        # a float32 run writes no master
+    real = chip_smoke.m_leaves
+    for seed in seeds:
+        tmp = tempfile.mkdtemp(prefix="shard_tol_ulp_")
+        try:
+            runs = {}
+            for which, leaves in (("base", real),
+                                  ("ulp", _ulp_leaves(real))):
+                chip_smoke.m_leaves = leaves
+                try:
+                    runs[which] = chip_smoke.p_unsharded(
+                        tag, seed, os.path.join(tmp, which))
+                finally:
+                    chip_smoke.m_leaves = real
+                torch.cuda.empty_cache()
+            a, b = runs["ulp"], runs["base"]
+            rel = {k: max(abs(x - y) / abs(y) for x, y in zip(a[k], b[k]))
+                   for k in ("loss", "grad_norm")}
+            step1, worst1 = _dir_gaps(os.path.join(tmp, "ulp"),
+                                      os.path.join(tmp, "base"), 1,
+                                      chip_smoke.P_STEP1_KINDS)
+            last, worst = _dir_gaps(os.path.join(tmp, "ulp"),
+                                    os.path.join(tmp, "base"),
+                                    chip_smoke.P_STEPS, kinds)
+            print(json.dumps({
+                "tag": tag, "seed": seed, "fault": "ulp_unsharded",
+                "gap_metrics": max(rel.values()), "gap_loss": rel["loss"],
+                "gap_grad_norm": rel["grad_norm"],
+                "grad_norm": [a["grad_norm"], b["grad_norm"]],
+                "gap_step1": step1, "gap_step1_max": max(step1.values()),
+                "worst_step1": worst1, "gap_leaves": last,
+                "gap_leaves_max": max(last.values()), "worst_leaves": worst,
+                "unsharded_step_ms": [a["step_ms"], b["step_ms"]]}),
+                flush=True)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
 
@@ -248,11 +409,20 @@ def main() -> int:
     ap.add_argument("--tag", choices=sorted(FAULTS), default="M1")
     ap.add_argument("--seeds", type=int, nargs="+", default=list(SEEDS),
                     help="the seeds to run (the faults run on seed 0)")
+    ap.add_argument("--ulp", action="store_true",
+                    help="P/Q tags: the run unsharded against itself with "
+                         "its parameters moved one ulp, no mesh")
     args = ap.parse_args()
     tag, seeds = args.tag, tuple(args.seeds)
     if not torch.cuda.is_available():
         print("shard_tol_control: no CUDA device", file=sys.stderr)
         return 1
+    if args.ulp:
+        if tag not in chip_smoke.P_RUNS:
+            ap.error("--ulp reads a train run (P1-P3, Q1-Q3)")
+        ulp_readings(tag, seeds)
+        print(chip_smoke.card_line())
+        return 0
     backend, devices = spmd.card_layout(chip_smoke.M_PROCS)
     if tag in chip_smoke.P_RUNS:
         train_readings(tag, devices, backend, seeds)

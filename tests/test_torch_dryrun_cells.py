@@ -3,10 +3,10 @@ arch's smoke config and every step kind on ``meta``, at small shapes
 (``test_torch_dryrun.SMALL_SHAPES``).  Every block runs on a process mesh,
 so every decode and prefill cell is planned on DTensor placements
 (``dryrun.sharded_plan``, in a fake process group this process opens and
-closes), and so is a train cell of the blocks whose train step runs on a
-process mesh (``dryrun.mesh_trains``: on the two-axis production mesh
-these cells use); the other train cells count their parameters' and
-gradients' collectives."""
+closes), and so is every train cell, as every block's train step runs on
+a process mesh (``dryrun.mesh_trains``: on the two-axis production mesh
+these cells use; on (2, 16, 16) a train cell counts its parameters' and
+gradients' collectives)."""
 
 import json
 import os
@@ -18,7 +18,6 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import pytest  # noqa: E402
 
-from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.configs.base import ARCHS  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.plan import COLLECTIVES  # noqa: E402
@@ -41,7 +40,7 @@ def test_run_cell_plans_every_smoke_config_on_meta(monkeypatch, arch, shape):
     # run on DTensors, the activations' partial sums
     assert c["reduce-scatter"] + c["all-reduce"] > 0
     sharded = shape != "train_4k" or dryrun.mesh_trains(
-        get_smoke_config(arch), dryrun.make_production_mesh(devices="meta"))
+        dryrun.make_production_mesh(devices="meta"))
     assert (r["temp_scope"], r["cost_split"], r["collectives_scope"]) == ((
         "one position's shard (DTensor placements)", "even",
         "all (DTensor placements)") if sharded else (

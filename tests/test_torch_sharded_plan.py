@@ -1,4 +1,5 @@
-"""The dry run's serving cells on DTensor placements (``launch/dryrun``'s
+"""The dry run's serving cells, and hymba's train cell, on DTensor
+placements (``launch/dryrun``'s
 ``sharded_plan``, ``launch/plan``'s ``ShardMeter`` and
 ``fake_process_group``): every collective DTensor issues at one position
 of a fake process group, by kind and result bytes.
@@ -235,12 +236,21 @@ def test_recurrent_and_cross_attention_cells_report_every_collective(
 
 @pytest.mark.parametrize("cell", ["hymba-1.5b|train_4k"])
 def test_other_cells_keep_the_parameter_count(planned, cell):
-    """A train cell of a block whose train step does not run on a process
-    mesh yet (qwen2's does: ``test_torch_sharded_trainer.py``)."""
+    """No block's train cell keeps the parameter count on (16, 16) any
+    more: hymba's train step is planned on DTensor placements, as
+    qwen2's (``test_torch_sharded_trainer.py``), the backward's
+    collectives of attention beside Mamba counted."""
     c = planned["cells"][cell]
-    assert c["collectives_scope"] == "parameters and gradients"
-    assert c["temp_scope"] == "model axis unsplit (upper bound)"
-    assert c["collective_counts"] is None
+    assert c["collectives_scope"] == "all (DTensor placements)"
+    assert c["temp_scope"] == "one position's shard (DTensor placements)"
+    counts = c["collective_counts"]
+    assert counts is not None and counts["all-reduce"] > 0 and \
+        counts["reduce-scatter"] > 0 and counts["all-gather"] > 0
+    assert all((counts[k] > 0) == (v > 0)
+               for k, v in c["collectives"].items())
+    mem = c["memory"]
+    assert mem["peak_bytes"] == (mem["argument_bytes"] + mem["temp_bytes"]
+                                 + mem["output_bytes"] - mem["alias_bytes"])
 
 
 @pytest.mark.parametrize("name", ["propagate_op_sharding_non_cached",

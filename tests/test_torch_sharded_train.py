@@ -40,6 +40,7 @@ Tolerances, float32 (readings on this file's cases in the comments):
   1e-5 of each leaf's largest magnitude: no pair of f32 runs that sum in
   different orders meets that."""
 
+import contextlib
 import dataclasses
 import os
 import subprocess
@@ -63,7 +64,8 @@ from repro_torch.launch.mesh import make_process_mesh  # noqa: E402
 from repro_torch.launch.sharding import (DEFAULT_RULES,  # noqa: E402
                                          ShardingRules)
 from repro_torch.launch.steps import TrainConfig, build_train_step  # noqa
-from repro_torch.models.layers import tree_paths  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
+from repro_torch.models.layers import tree_paths, tree_unflatten  # noqa
 from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 from test_torch_sharded_serve import AXES, MESH, np_params  # noqa: E402
 
@@ -81,6 +83,8 @@ class Case:
     fsdp: bool = False             # scan_param_fsdp
     S: int = 32                    # sequence length
     replace: tuple = ()            # config fields replaced
+    gate: float | None = None      # every gate leaf's value (0 at init)
+    chunks: tuple = ()             # (name, value) of ``models.ssm``
 
     def cfg(self, get=get_smoke_config):
         return dataclasses.replace(get(self.arch), **dict(self.replace))
@@ -88,6 +92,23 @@ class Case:
     def train(self, tc=TrainConfig):
         return tc(remat=self.remat, microbatch=self.microbatch,
                   scan_param_fsdp=self.fsdp)
+
+    def params(self, cfg) -> dict:
+        """``np_params(cfg)``, every gate leaf at ``gate``."""
+        tree = np_params(cfg)
+        if self.gate is None:
+            return tree
+        return tree_unflatten(tree, [
+            np.full_like(a, self.gate) if "gate" in n.rsplit(".", 1)[-1]
+            else a for n, a in tree_paths(tree)])
+
+    @contextlib.contextmanager
+    def patched(self, ssm):
+        """``ssm`` (either package's ``models.ssm``) with ``chunks`` set."""
+        with pytest.MonkeyPatch.context() as mp:
+            for name, value in self.chunks:
+                mp.setattr(ssm, name, value)
+            yield
 
 
 QW = "qwen2-0.5b"
@@ -101,7 +122,8 @@ BY_NAME = {c.name: c for c in CASES}
 
 def np_batch(cfg, S: int, step: int, seed: int = 10) -> dict:
     """Step ``step``'s batch of B rows: labels and tokens, or embeddings
-    for a config that takes them."""
+    for a config that takes them; image embeddings (B, I, D) N(0, 1) for
+    a config with image tokens."""
     rng = np.random.default_rng(seed + step)
     b = {"labels": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
     if cfg.inputs_embeds:
@@ -109,6 +131,9 @@ def np_batch(cfg, S: int, step: int, seed: int = 10) -> dict:
             .astype(np.float32)
     else:
         b["tokens"] = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    if cfg.n_image_tokens:
+        b["image_embed"] = rng.standard_normal(
+            (B, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
     return b
 
 
@@ -117,8 +142,13 @@ def run_case(case: Case, device, mesh=None, rules=None) -> dict:
     each step's loss and grad norm, the AdamW moments after the first
     step, and the parameters and AdamW state after the last, as numpy
     (every rank of a mesh joins the gathers)."""
+    with case.patched(ssm):
+        return _run_case(case, device, mesh, rules)
+
+
+def _run_case(case: Case, device, mesh, rules) -> dict:
     cfg, tc = case.cfg(), case.train()
-    model = params_from_numpy(np_params(cfg), cfg, device).trainable()
+    model = params_from_numpy(case.params(cfg), cfg, device).trainable()
     opt = adamw_init(model, tc.optim)
     lay_out = lambda b: b                                 # noqa: E731
     if mesh is not None:
@@ -158,59 +188,68 @@ def reference_side(path: str, names: list, by_name: dict) -> None:
     ``by_name`` on a (2, 2) mesh of four host devices, saved to ``path``
     (npz)."""
     import jax
-    import jax.numpy as jnp
-    from jax.sharding import NamedSharding
-    from repro.configs import get_smoke_config as rcfg
     from repro.core.jaxcompat import make_mesh, set_mesh
-    from repro.launch import steps as rsteps
-    from repro.launch.inputs import _bspec, param_specs_sharded
     from repro.launch.sharding import (DEFAULT_RULES as RULES,
                                        ShardingRules as Rules)
-    from repro.models import loss_fn
-    from repro.optim import adamw_init as radamw_init
+    from repro.models import ssm as rssm
 
     mesh = make_mesh(MESH, AXES, devices=jax.devices()[:4])
     rules = Rules(RULES)
     out = {}
+    with set_mesh(mesh):
+        for name in names:
+            with by_name[name].patched(rssm):
+                out.update(_reference_case(by_name[name], mesh, rules))
+    np.savez(path, **out)
+
+
+def _reference_case(case: Case, mesh, rules) -> dict:
+    """The reference's arrays of ``case``, keyed ``name|...``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+    from repro.configs import get_smoke_config as rcfg
+    from repro.launch import steps as rsteps
+    from repro.launch.inputs import _bspec, param_specs_sharded
+    from repro.models import loss_fn
+    from repro.optim import adamw_init as radamw_init
+
+    name, out = case.name, {}
 
     def put(a, s):
         return jax.device_put(jnp.asarray(a, s.dtype), s.sharding)
 
     def flat(tree, prefix):
-        for name, a in tree_paths(jax.tree.map(np.asarray, tree)):
-            out[f"{prefix}|{name}"] = a
+        for leaf, a in tree_paths(jax.tree.map(np.asarray, tree)):
+            out[f"{prefix}|{leaf}"] = a
 
-    with set_mesh(mesh):
-        for name in names:
-            case = by_name[name]
-            cfg, pcfg = case.cfg(rcfg), case.cfg()
-            tc = case.train(rsteps.TrainConfig)
-            params = jax.tree.map(put, np_params(pcfg),
-                                  param_specs_sharded(cfg, mesh, rules))
-            opt = jax.tree.map(put, radamw_init(params, tc.optim),
-                               rsteps.opt_state_specs(cfg, mesh, rules, tc))
-            bsh = NamedSharding(mesh, _bspec(mesh, B))
-            if pcfg.n_experts:
-                b0 = {k: jax.device_put(v, bsh)
-                      for k, v in np_batch(pcfg, case.S, 0).items()}
+    cfg, pcfg = case.cfg(rcfg), case.cfg()
+    tc = case.train(rsteps.TrainConfig)
+    params = jax.tree.map(put, case.params(pcfg),
+                          param_specs_sharded(cfg, mesh, rules))
+    opt = jax.tree.map(put, radamw_init(params, tc.optim),
+                       rsteps.opt_state_specs(cfg, mesh, rules, tc))
+    bsh = NamedSharding(mesh, _bspec(mesh, B))
+    if pcfg.n_experts:
+        b0 = {k: jax.device_put(v, bsh)
+              for k, v in np_batch(pcfg, case.S, 0).items()}
 
-                def aux_of(p, b):
-                    with rsteps.rules_ctx(rules, mesh):
-                        return loss_fn(p, cfg, b, remat="none")[1]["aux"]
-                out[f"{name}|aux"] = np.asarray(jax.jit(aux_of)(params, b0))
-            step = jax.jit(rsteps.build_train_step(cfg, tc, rules, mesh))
-            for i in range(STEPS):
-                batch = {k: jax.device_put(v, bsh)
-                         for k, v in np_batch(pcfg, case.S, i).items()}
-                params, opt, m = step(params, opt, batch)
-                out[f"{name}|loss{i}"] = np.asarray(m["loss"])
-                out[f"{name}|grad_norm{i}"] = np.asarray(m["grad_norm"])
-                if i == 0:
-                    flat({"m": opt["m"], "v": opt["v"]}, f"{name}|first")
-            flat(params, f"{name}|params")
-            flat({k: v for k, v in opt.items() if k != "step"},
-                 f"{name}|opt")
-    np.savez(path, **out)
+        def aux_of(p, b):
+            with rsteps.rules_ctx(rules, mesh):
+                return loss_fn(p, cfg, b, remat="none")[1]["aux"]
+        out[f"{name}|aux"] = np.asarray(jax.jit(aux_of)(params, b0))
+    step = jax.jit(rsteps.build_train_step(cfg, tc, rules, mesh))
+    for i in range(STEPS):
+        batch = {k: jax.device_put(v, bsh)
+                 for k, v in np_batch(pcfg, case.S, i).items()}
+        params, opt, m = step(params, opt, batch)
+        out[f"{name}|loss{i}"] = np.asarray(m["loss"])
+        out[f"{name}|grad_norm{i}"] = np.asarray(m["grad_norm"])
+        if i == 0:
+            flat({"m": opt["m"], "v": opt["v"]}, f"{name}|first")
+    flat(params, f"{name}|params")
+    flat({k: v for k, v in opt.items() if k != "step"}, f"{name}|opt")
+    return out
 
 
 def spawn_with_reference(script: str, body, args: tuple, names: list):
@@ -326,16 +365,17 @@ def test_grad_norm_clips(unsharded, case):
 
 
 def test_other_blocks_refuse_a_process_mesh():
-    """The train step of hybrid, mlstm, slstm and cross_attn_mlp on a
-    process mesh raises ``NotImplementedError`` naming ROADMAP's item."""
-    from test_torch_sharded_serve import OTHER_ARCHS, _fake_mesh
+    """No block refuses a process mesh any more: ``build_train_step``
+    builds for every arch of ``ARCHS`` under ``DEFAULT_RULES`` on a
+    stand-in (data 2, model 2) process mesh."""
+    from repro_torch.configs.base import ARCHS
+    from test_torch_sharded_serve import _fake_mesh
 
     mesh = _fake_mesh(MESH, AXES, (0, 0))
-    for block, arch in OTHER_ARCHS.items():
-        with pytest.raises(NotImplementedError, match="8a-v") as e:
-            build_train_step(get_smoke_config(arch), TrainConfig(),
-                             ShardingRules(DEFAULT_RULES), mesh)
-        assert block in str(e.value)
+    for arch in ARCHS:
+        assert callable(build_train_step(
+            get_smoke_config(arch), TrainConfig(),
+            ShardingRules(DEFAULT_RULES), mesh)), arch
 
 
 if __name__ == "__main__":

@@ -13,8 +13,8 @@ gathered and written by rank 0 (``checkpoint/ckpt.py``).
 - The dry run's qwen2 train cell is planned on DTensor placements, the
   train step run sharded at one position of a fake process group of 256
   (in a subprocess: the fake group is this process's default group while
-  it is open); hymba's, whose train step does not run on a process mesh,
-  keeps the parameters' and gradients' count."""
+  it is open); so is every block's train cell on (16, 16) (hymba's plan
+  is ``test_torch_sharded_plan.py``'s), and none on (2, 16, 16)."""
 
 import json
 import os
@@ -47,37 +47,40 @@ STEPS, EVERY, FAIL = 6, 2, 3
 SEQ, BATCH = 16, 4
 
 
-def trainer(ckpt_dir: str, fail=None, mesh=None, device="cpu"):
+def trainer(ckpt_dir: str, fail=None, mesh=None, device="cpu",
+            arch: str = ARCH, steps: int = STEPS):
     from repro_torch.data.pipeline import (DataConfig, TokenDataset,
                                            synthetic_tokens)
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    cfg = get_smoke_config(ARCH)
+    cfg = get_smoke_config(arch)
     ds = TokenDataset(synthetic_tokens(50_000, cfg.vocab),
                       DataConfig(seq_len=SEQ, global_batch=BATCH,
                                  vocab=cfg.vocab))
-    tc = TrainerConfig(steps=STEPS, ckpt_every=EVERY, ckpt_dir=ckpt_dir,
+    tc = TrainerConfig(steps=steps, ckpt_every=EVERY, ckpt_dir=ckpt_dir,
                        fail_at_step=fail, log_every=1,
                        train=TrainConfig(remat="full"))
     return Trainer(cfg, tc, ds, ShardingRules(DEFAULT_RULES), mesh,
                    device=device)
 
 
-def rank_body(rank: int, device, resumed: str, whole: str) -> dict:
-    """The failing run and its resumption in ``resumed``, an uninterrupted
-    run in ``whole``; rank 0 returns both runs' losses, what the failing
-    run raised, the step each checkpoint directory ended at between the
-    two, and both runs' final parameters gathered."""
+def rank_body(rank: int, device, resumed: str, whole: str,
+              arch: str = ARCH, steps: int = STEPS) -> dict:
+    """The failing run of ``arch``'s smoke config and its resumption in
+    ``resumed``, an uninterrupted run in ``whole``; rank 0 returns both
+    runs' losses, what the failing run raised, the step each checkpoint
+    directory ended at between the two, and both runs' final parameters
+    gathered."""
     mesh = make_process_mesh(MESH, AXES, device)
     out = {}
     try:
-        trainer(resumed, FAIL, mesh).run()
+        trainer(resumed, FAIL, mesh, arch=arch, steps=steps).run()
         out["failed"] = None
     except RuntimeError as e:             # the injected failure, asserted
         out["failed"] = str(e)
     out["after_failure"] = latest_step(resumed)
-    r = trainer(resumed, None, mesh).run()
-    u = trainer(whole, None, mesh).run()
+    r = trainer(resumed, None, mesh, arch=arch, steps=steps).run()
+    u = trainer(whole, None, mesh, arch=arch, steps=steps).run()
     out["losses"] = (r["losses"], u["losses"])
     out["params"] = (tree_to_numpy(r["params"].tree()),
                      tree_to_numpy(u["params"].tree()))
@@ -173,7 +176,7 @@ def plans() -> dict:
     from repro_torch.launch import dryrun
 
     out = {}
-    for arch in ("qwen2-0.5b", "hymba-1.5b"):
+    for arch in ("qwen2-0.5b",):
         r = dryrun.run_cell(arch, "train_4k", units=1)
         out[arch] = {k: r.get(k) for k in (
             "collectives", "collectives_scope", "collective_counts",
@@ -208,11 +211,20 @@ def test_train_cell_plans_on_dtensor_placements(planned):
     assert sum(c["argument_parts"].values()) == mem["argument_bytes"]
 
 
-def test_later_blocks_train_cells_keep_the_parameter_count(planned):
-    c = planned["hymba-1.5b"]
-    assert c["collectives_scope"] == "parameters and gradients"
-    assert c["temp_scope"] == "model axis unsplit (upper bound)"
-    assert c["collective_counts"] is None
+def test_later_blocks_train_cells_keep_the_parameter_count():
+    """Every block's train step runs on a process mesh, so a train cell
+    of hymba-1.5b is planned on DTensor placements wherever qwen2's is:
+    on the two-axis (16, 16) mesh (its plan is
+    ``test_torch_sharded_plan.py``'s, made once); on the (2, 16, 16)
+    mesh every train cell keeps the parameters' and gradients' count
+    (``dryrun.mesh_trains``: DTensor's planner spends minutes on three
+    axes)."""
+    from repro_torch.launch import dryrun
+
+    single = dryrun.make_production_mesh(devices="meta")
+    multi = dryrun.make_production_mesh(multi_pod=True, devices="meta")
+    assert (single.shape, multi.shape) == ((16, 16), (2, 16, 16))
+    assert dryrun.mesh_trains(single) and not dryrun.mesh_trains(multi)
 
 
 if __name__ == "__main__":

@@ -363,9 +363,9 @@ def test_slstm_step_matches_reference():
     carry[1][0] = 0.0
     carry[1] = np.abs(carry[1])
     wx = r.standard_normal((B, 4 * cfg.d_model)).astype(np.float32)
-    got, h = pssm._slstm_step(pp, cfg, tuple(torch.from_numpy(c)
-                                             for c in carry),
-                              torch.from_numpy(wx))
+    got, h = pssm._slstm_step(pp["R"], pp["bias"].reshape(H, 4 * dh),
+                              tuple(torch.from_numpy(c) for c in carry),
+                              torch.from_numpy(wx).reshape(B, H, 4 * dh))
     want, jh = jssm._slstm_step(jp, jcfg, tuple(jnp.asarray(c)
                                                 for c in carry),
                                 jnp.asarray(wx))
