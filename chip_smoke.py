@@ -261,6 +261,24 @@
         Counts are zeroed just before P and read just after Q
         (``launches_p``, ``launches_q``): the train path runs none of the
         five kernels, and a launch there fails the run.
+     R  the port's correctness gates in process on the card
+        (``drive_gates``, sizes in R_GATES): R1
+        ``port/scripts/check_filter_zero_fn.py`` at 4096 keys (the
+        reference gate's stores, keys and requests) and at 1,048,576 keys
+        (the default LSMConfig): filters off against filters on, byte for
+        byte, the filters-on durable store reopened with no filter
+        rebuilt; R2 ``port/scripts/check_io_determinism.py`` at 4096 and
+        262,144 keys: the pipelined server over a durable sharded store
+        with the group-commit WAL at ``io_workers`` 0, 1 and 4, byte for
+        byte with no epoch violation (pool workers resolve batches whose
+        kernels this thread launched).  Each gate's line has its counts
+        (requests, probes, screened, host-answered, filters rebuilt,
+        epoch violations), each arm's seconds and its launches, zeroed
+        just before the gate and read just after.  A gate's non-zero
+        status fails the run, as does a gate that launched none of the
+        four descent kernels; the kernels are then held against their
+        plain versions on the probes each arm dispatched, before its
+        store closes (``gate_shape_r1``, ``gate_shape_r2``).
    After the timed batches of C, D, E and G, 4 of the phase's batches
    replay through its dispatch half (``BourbonStore.dispatch_get`` in C,
    ``ShardedStore.dispatch_get`` in D and G, and in E shard 0's
@@ -285,7 +303,8 @@
    at the batch sizes F dispatched, on its probes; the four descent
    kernels also at phase H's session index, on H's, I's and J's batches;
    ``plr_lookup`` and ``bounded_search`` also at phase L1's shard row, on
-   its GET batches of 2^20 probes),
+   its GET batches of 2^20 probes; and those phase R launched, on the
+   probes its gates dispatched),
    times both with CUDA events and torch.profiler, and computes the
    kernel's lower bound from the bytes its probes must gather and the
    per-launch floor (the device time of one trivial PyTorch kernel over
@@ -4503,6 +4522,115 @@ def drive_sharded_train(seed: int, card: str, tags=P_TAGS) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------------
+# the correctness gates (phase R)
+# ----------------------------------------------------------------------------
+
+# each gate at the reference's size, then at one the default LSMConfig
+# spreads over L1 and L2 (R1) or over two L1 files a shard (R2); shrink
+# the second sizes first (2^19, 2^17) if the run nears its limit
+R_GATES = {"R1": ("check_filter_zero_fn", (1 << 12, 1 << 20)),
+           "R2": ("check_io_determinism", (1 << 12, 1 << 18))}
+
+
+def _gate(script: str):
+    """``port/scripts/<script>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        script, os.path.join(HERE, "port", "scripts", script + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class EngineCapture(_Patch):
+    """Keeps, while installed on a ``BourbonStore``'s engine, the padded
+    probes of every lookup the store dispatches to the device."""
+
+    def __init__(self, engine):
+        super().__init__(engine, "lookup_async")
+        self.sets = []
+
+    def wrap(self, orig):
+        def captured(state, probes, *args, **kw):
+            self.sets.append(np.array(probes, np.int64))
+            return orig(state, probes, *args, **kw)
+        return captured
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Kernel launches inside leave the launch counts as they were."""
+    from repro_torch.kernels import ops
+    kept = dict(ops.launches)
+    try:
+        yield
+    finally:
+        ops.launches.update(kept)
+
+
+def gate_watch(tag: str, checks: dict):
+    """The ``watch`` a gate holds around each arm's GETs: capture the
+    probes the arm's store dispatches, then, before the store closes, hold
+    the kernels against their plain versions on them (R1 every level of
+    the store's device state, ``session_shape_checks``; R2 the stacked
+    shard state, ``served_shape_checks``), merged into ``checks``."""
+    @contextlib.contextmanager
+    def watch(arm, st):
+        cap = EngineCapture(st.engine) if tag == "R1" else DispatchCapture(st)
+        with cap:
+            yield
+        if cap.sets:
+            with uncounted():
+                _merge(checks, session_shape_checks(st, cap.sets)
+                       if tag == "R1" else served_shape_checks(st, cap.sets))
+    return watch
+
+
+def drive_gates(card: str, device: str = "cuda") -> dict:
+    """Phase R: ``port/scripts/check_filter_zero_fn.py`` (R1) and
+    ``check_io_determinism.py`` (R2) in process on ``device``, each at the
+    sizes of R_GATES.  Counts are zeroed just before each and read just
+    after; the kernels are then held against their plain versions on the
+    probes each arm dispatched.  Prints one line a gate; fails on a gate's
+    non-zero status, when a gate launched none of the four descent
+    kernels, or on a mismatch.  Returns per gate its launches and
+    checks."""
+    from repro_torch.kernels import ops
+    out = {}
+    for tag, (script, sizes) in R_GATES.items():
+        mod = _gate(script)
+        checks: dict = {}
+        runs = []
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        for n in sizes:
+            t1 = time.perf_counter()
+            rc, rec = mod.gate(device, n, watch=gate_watch(tag, checks))
+            del rec["answers"], rec["device"]
+            runs.append(dict(rec, rc=rc, s=time.perf_counter() - t1))
+            if rc != 0:
+                break
+        launches = dict(ops.launches)
+        line = {"phase": tag, "gate": f"port/scripts/{script}.py",
+                "runs": runs, "launches": launches, "checks": checks,
+                "s": time.perf_counter() - t0, "card": card}
+        print(json.dumps(line))
+        for r in runs:
+            if r["rc"] != 0:
+                fail(f"phase {tag}: {script}.py --keys {r['keys']} returned "
+                     f"{r['rc']} on {device}")
+        if not any(launches[k] for k in KERNELS[:4]):
+            fail(f"phase {tag}: the gate launched none of the descent "
+                 f"kernels ({launches})")
+        for name, c in checks.items():
+            if c["mismatches"]:
+                fail(f"phase {tag}: {name} disagrees with its plain version "
+                     f"on {c['mismatches']} outputs of the gate's probes")
+        out[tag] = {"launches": launches, "checks": checks}
+    return out
+
+
 KERNELS = ("plr_lookup", "bounded_search", "bloom_probe", "sstable_search",
            "bloom_probe_stack")
 GROUP_MACROS = {"bounded_search": "BOUNDED_SEARCH_GROUP",
@@ -5410,6 +5538,19 @@ def main() -> int:
     for k in checks:
         k["launches_p"] = rec_p["launches"]["P"].get(k["name"], 0)
         k["launches_q"] = rec_p["launches"]["Q"].get(k["name"], 0)
+    del rec_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec_r = drive_gates(card)    # phase R: the correctness gates
+    print(f"phase R {time.perf_counter() - t0:.1f}s")
+    for k in checks:
+        for tag, r in rec_r.items():
+            n = r["launches"][k["name"]]
+            k[f"launches_{tag.lower()}"] = n
+            k["launches"] += n
+            if k["name"] in r["checks"]:
+                k[f"gate_shape_{tag.lower()}"] = r["checks"][k["name"]]
     for k in checks:
         other = {tag: k[tag]["mismatches"]
                  for tag in ("wide_check", "shard_shape", "level_model_shape",
@@ -5417,7 +5558,8 @@ def main() -> int:
                              "mesh_dispatched_shape", "mesh_example_shape",
                              "session_shape", "session_shape_i",
                              "session_shape_j", "store_shape",
-                             "store_row_shape")
+                             "store_row_shape", "gate_shape_r1",
+                             "gate_shape_r2")
                  if tag in k}
         if k["mismatches"] != 0 or any(other.values()):
             fail(f"{k['name']} disagrees with its plain version on "

@@ -166,3 +166,48 @@ def test_value_logs_need_a_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DurableValueLog(8, str(tmp_path))
     assert ValueLog(device="cpu").device.type == "cpu"
+
+
+def test_gates_import_no_jax_or_repro():
+    """The port's correctness gates (``port/scripts/check_*.py``) load
+    neither JAX nor the reference when imported, as ``chip_smoke.py``
+    imports them on the card."""
+    gates = sorted(f for f in os.listdir(os.path.join(PORT, "scripts"))
+                   if f.startswith("check_") and f.endswith(".py"))
+    assert gates == ["check_filter_zero_fn.py", "check_io_determinism.py"]
+    code = textwrap.dedent(f"""
+        import importlib.util, os, sys
+        for f in {gates!r}:
+            path = os.path.join({os.path.join(PORT, "scripts")!r}, f)
+            spec = importlib.util.spec_from_file_location(f[:-3], path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            assert callable(mod.main) and callable(mod.gate)
+        bad = sorted(k for k in sys.modules
+                     if k.split(".")[0] in {sorted(FORBIDDEN)!r})
+        print(",".join(bad))
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120, check=True)
+    assert out.stdout.strip() == ""
+
+
+def test_ci_script_parses_and_names_existing_paths():
+    """``bash -n port/ci.sh`` passes, and every repo path the script names
+    (its commands' and its comments') exists."""
+    import glob
+    import re
+
+    ci = os.path.join(PORT, "ci.sh")
+    subprocess.run(["bash", "-n", ci], check=True, timeout=30)
+    text = open(ci).read()
+    paths = set(re.findall(r"\b((?:port|tests|scripts|src|benchmarks)/"
+                           r"[\w./*-]*[\w*/])", text))
+    assert {"port/scripts/lint.py", "port/mypy.ini",
+            "port/scripts/check_io_determinism.py",
+            "port/scripts/check_filter_zero_fn.py",
+            "tests/test_torch_kernels_cuda.py",
+            "tests/test_torch_*.py"} <= paths
+    for p in sorted(paths):
+        assert glob.glob(os.path.join(REPO, p)), p
